@@ -1,6 +1,6 @@
 """Bit-faithful fixed-point golden model (pure numpy).
 
-This module is the parity oracle for the TPU kernels: each function reproduces
+This module is the parity oracle for the JAX stages: each function reproduces
 the integer arithmetic of the corresponding VHDL component exactly (same
 rounding, truncation and saturation), expressed as whole-array numpy code.
 
@@ -130,7 +130,7 @@ def bfp_fft(i: np.ndarray, q: np.ndarray, axis: int = -1):
     positive peak of exactly 2^15 * 2^k scales to +32768 and saturates to
     32767 (1 LSB), while a -32768 peak survives — int16's asymmetry, and
     the behavior every other implementation in the repo (ops/fft.bfp_
-    quantize, frontend_pallas._bfp_scale) reproduces bit-for-bit; write new
+    quantize) reproduces bit-for-bit; write new
     twins from THIS formula, not from a no-overflow paraphrase.  The block
     exponent is discarded, exactly as the reference discards the XFFT
     tuser field (rtl/src/radar_core.vhd:310).
@@ -427,7 +427,7 @@ def block_scale_map(mag_map: np.ndarray, cfar: CfarParams,
     With a block-constant threshold this is the counting form of "rank_pct
     percentile vs mean"; cells compare against their *own* block's threshold
     (not the classified block's) so each cell is tested exactly once — the
-    property that keeps the TPU implementation at a handful of map passes
+    property that keeps the JAX implementation at a handful of map passes
     (ops/cfar.block_scale_map).  Thresholds of adjacent blocks differ only
     through their overlapping 3x3 neighborhoods, so the mixture stays a
     local clutter classifier.

@@ -94,6 +94,7 @@ class FloatChainResult:
     rdm_complex: np.ndarray     # (n_range, n_doppler) complex post-Doppler-FFT
     mag_map: np.ndarray         # (n_range, n_doppler) float magnitude
     det_map: np.ndarray         # zero-suppressed CFAR output
+    threshold_map: np.ndarray   # est * scale per cell (dbg_threshold)
 
 
 def process_frame(frame_iq: np.ndarray, params: RadarParams | None = None,
@@ -142,12 +143,14 @@ def process_frame(frame_iq: np.ndarray, params: RadarParams | None = None,
     else:
         mag = np.abs(z)
 
-    det = _cfar_float(mag, p, scale_override)
-    return FloatChainResult(rdm_complex=z, mag_map=mag, det_map=det)
+    det, threshold = _cfar_float(mag, p, scale_override)
+    return FloatChainResult(rdm_complex=z, mag_map=mag, det_map=det,
+                            threshold_map=threshold)
 
 
-def _cfar_float(mag: np.ndarray, p: RadarParams, scale_override: int) -> np.ndarray:
-    """Float OS-CFAR with the same geometry/scales as the fixed model."""
+def _cfar_float(mag: np.ndarray, p: RadarParams, scale_override: int):
+    """Float CFAR with the same geometry/scales as the fixed model.
+    Returns (det_map, threshold_map)."""
     cfar = p.cfar
     offs = fx._window_offsets(cfar)
     if cfar.edge_mode == "wrap":
@@ -171,10 +174,43 @@ def _cfar_float(mag: np.ndarray, p: RadarParams, scale_override: int) -> np.ndar
         raise ValueError(cfar.variant)
     if scale_override:
         scale = float(scale_override)
+    elif cfar.scale_mode == "block":
+        scale = _block_scale_float(mag, cfar)
     else:
         scale = np.where(est > 1.5 * mean, cfar.scale_max,
                          np.where(est < 0.5 * mean, cfar.scale_min, cfar.scale_nom))
-    return np.where(mag > est * scale, mag, 0.0)
+    threshold = est * scale
+    return np.where(mag > threshold, mag, 0.0), threshold
+
+
+def _block_scale_float(mag: np.ndarray, cfar) -> np.ndarray:
+    """Float twin of fixed_point.block_scale_map (true division, 1.5x/0.5x
+    thresholds — the float per-cell rule lifted to blocks)."""
+    B = cfar.scale_block
+    R, D = mag.shape
+    Rb, Db = R // B, D // B
+    N = 9 * B * B
+    k = N - min((N * cfar.rank_pct) // 100, N - 1)
+
+    def nb9(a):
+        if cfar.edge_mode == "wrap":
+            return sum(np.roll(a, (-i, -j), axis=(0, 1))
+                       for i in (-1, 0, 1) for j in (-1, 0, 1))
+        return sum(a[np.clip(np.arange(Rb) + i, 0, Rb - 1)]
+                   [:, np.clip(np.arange(Db) + j, 0, Db - 1)]
+                   for i in (-1, 0, 1) for j in (-1, 0, 1))
+
+    def block_sum(x):
+        return x.reshape(Rb, B, Db, B).sum(axis=(1, 3))
+
+    def cells(b):
+        return np.repeat(np.repeat(b, B, 0), B, 1)
+
+    mean = cells(nb9(block_sum(mag)) / N)
+    hi = nb9(block_sum(mag > 1.5 * mean)) >= k
+    lo = nb9(block_sum(mag >= 0.5 * mean)) < k
+    return cells(np.where(hi, cfar.scale_max,
+                          np.where(lo, cfar.scale_min, cfar.scale_nom)))
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ subtleties:
   free track slots (tws_tracker.vhd:233-263).
 
 State is a dict of numpy arrays (a pytree), advanced one scan at a time by
-``step`` — the TPU-side tracker (models/tracker.py) matches it bit for bit.
+``step`` — the JAX tracker (models/tracker.py) matches it bit for bit.
 """
 
 from __future__ import annotations

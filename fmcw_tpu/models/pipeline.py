@@ -1,14 +1,14 @@
-"""Single-chip radar pipeline — the framework's "model".
+"""Single-device radar pipeline — the framework's "model".
 
-TPU-native equivalent of the reference top (rtl/src/radar_core.vhd:267-418):
-one jitted array program per frame instead of nine streaming AXI stages.
+Array-program equivalent of the reference top (rtl/src/radar_core.vhd:267-418):
+one jitted program per frame instead of nine streaming AXI stages.
 
     window -> range FFT -> corner turn -> MTI -> window -> Doppler FFT
            -> magnitude -> 2D CFAR -> (peak group) -> top-K detections
 
 Two numeric modes:
 
-* ``float32`` (production): windows folded into the DFT matmuls (MXU), float
+* ``float32`` (production): windows folded into the DFT matmuls, float
   MTI/magnitude/CFAR.  Fastest path; full dynamic range (no BFP compression).
 * ``fixed`` (parity): bit-faithful int16/int32 emulation of the reference's
   inter-stage formats — integer windows with saturation counters, per-
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..params import RadarParams
+from ..routes import resolve_routes
 from ..ops import window as W, fft as F, notch as N, magnitude as M
 from ..ops import cfar as C, detect as DET
 
@@ -41,214 +42,6 @@ def complex_to_iq(frame: np.ndarray) -> np.ndarray:
     return np.stack([z.real, z.imag], axis=-1).astype(np.int16)
 
 
-def frontend_kernel_supported(p: RadarParams) -> bool:
-    """Can ops/frontend_pallas.rdm_frontend process this frame shape at all?
-    (Its Cooley-Tukey slice layout needs n_range = n2*128 with n2 <= 16,
-    or a single 128-sample slice.)"""
-    return p.n_range == 128 or (p.n_range % 128 == 0
-                                and p.n_range // 128 <= 16)
-
-
-def _doppler_split(p: RadarParams) -> int:
-    """Parity-plane count of the kernel's long-CPI Doppler split (n2d):
-    n_doppler/128 when that divides evenly, else 1 (the dense fused
-    slow-time operator handles any n_doppler)."""
-    if p.n_doppler > 128 and p.n_doppler % 128 == 0:
-        return p.n_doppler // 128
-    return 1
-
-
-def kernel_scale_supported(p: RadarParams) -> bool:
-    """Can the fused front-end kernel emit the clutter-map (block) scale?
-    (Block grid must line up with its n2-slice layout — and with the
-    long-CPI parity planes when n_doppler > 128; wrap edges.)"""
-    return (frontend_kernel_supported(p)
-            and p.cfar.scale_mode == "block"
-            and p.cfar.edge_mode == "wrap" and p.n_range > 128
-            and p.cfar.scale_block == p.n_range // 128
-            and p.n_doppler % p.cfar.scale_block == 0
-            and p.cfar.scale_block % _doppler_split(p) == 0)
-
-
-def kernel_percell_supported(p: RadarParams) -> bool:
-    """Can the fused front-end kernel run the reference-exact per-cell
-    adaptive-scale CFAR in its detect epilogue?  Includes the n2 == 1
-    single-slice case (n_range == 128 — the QUICK_MODE map,
-    tb_tactical.vhd:28-40): window row offsets then address the +-8-row
-    sublane pad of the rotation scratch directly."""
-    return (frontend_kernel_supported(p)
-            and p.cfar.scale_mode == "cell"
-            and p.cfar.edge_mode == "wrap"
-            and p.cfar.halo_range <= 8 * max(p.n_range // 128, 1))
-
-
-def _fused_geometry_ok(p: RadarParams, peak_group_radius: int,
-                       cfar_method: str, include_debug: bool) -> bool:
-    # The detect epilogue's rotation scratch pads 8 sublane rows per slice
-    # (frontend_pallas._DET_PAD), so the CFAR window's range halo must fit
-    # 8*(n_range/128) — rdm_frontend(detect=True) rejects larger windows at
-    # trace time.  Gate it here so 'auto' resolution falls back to the
-    # standalone kernels instead of crashing (the scale-only in-kernel
-    # emission, kernel_scale_supported, has no halo dependence).
-    return ((kernel_scale_supported(p) or kernel_percell_supported(p))
-            and p.cfar.variant in ("os", "ca", "go", "so")
-            and p.cfar.halo_range <= 8 * (p.n_range // 128)
-            and peak_group_radius <= 8
-            # Long-CPI Doppler split: outer radix capped at 16 (the same
-            # bound as the range axis) — 'auto' must not resolve into a
-            # trace-time rejection.
-            and not (p.n_doppler % 128 == 0 and p.n_doppler // 128 > 16)
-            and not include_debug and cfar_method in ("auto", "pallas"))
-
-
-def fused_detect_supported(p: RadarParams, mode: str = "float32",
-                           peak_group_radius: int = 0,
-                           cfar_method: str = "auto",
-                           include_debug: bool = False) -> bool:
-    """Can the WHOLE frame (front-end + CFAR decision + peak grouping) run
-    as the single fused kernel?  Shared gate for the single-chip fused path
-    and the pure-frame-DP sharded path (parallel/sharded.py)."""
-    return (mode == "float32"
-            and _fused_geometry_ok(p, peak_group_radius, cfar_method,
-                                   include_debug))
-
-
-def fused_fixed_detect_supported(p: RadarParams, peak_group_radius: int = 0,
-                                 cfar_method: str = "auto",
-                                 include_debug: bool = False) -> bool:
-    """Can mode='fixed' run as the fused fixed-point kernel
-    (frontend_pallas.rdm_frontend_fixed)?  Same geometry gate as the float
-    fused path, plus the integer-exactness bound: configs whose decision
-    uses training-window SUMS (CA/GO/SO estimates, or the per-cell
-    adaptive-scale mean) carry them as integers in f32, exact only while
-    the full-window sum stays below 2^24 (max magnitude 45056 => at most
-    372 window cells incl. guards; the default 13x11 window is 143).
-    OS + block scale decides purely by counting (plus exact int32 block
-    sums), so it has no window-size bound beyond the geometry gate.
-    NOTE this path is explicit opt-in (frontend='pallas') — 'auto' keeps
-    the XLA chain for fixed mode, preserving the "fixed mode is
-    bit-identical everywhere" invariant (the fused kernel's bf16x6 FFTs
-    differ from the XLA chain's in quantized ulps; see the
-    rdm_frontend_fixed numerics contract)."""
-    needs_sums = p.cfar.variant != "os" or p.cfar.scale_mode == "cell"
-    return (_fused_geometry_ok(p, peak_group_radius, cfar_method,
-                               include_debug)
-            and (not needs_sums
-                 or p.cfar.win_range * p.cfar.win_doppler * 45056 < 2 ** 24))
-
-
-def fused_frontend_supported(p: RadarParams) -> bool:
-    """Can the front-end alone (iq -> magnitude, no detect epilogue) run as
-    the fused Pallas kernel?  Only the Cooley-Tukey shape constraint
-    applies: n_range = n2 * 128 with outer radix n2 <= 16 (or a single
-    slice, n_range <= 128).  Used by the array model's ref_angle > 0 path,
-    where the decision runs in the angle-extended 3D counting kernel on the
-    fused front-end's mag cubes instead of the in-kernel 2D epilogue."""
-    n1 = min(p.n_range, 128)
-    return p.n_range % n1 == 0 and p.n_range // n1 <= 16
-
-
-def resolve_array_frontend(p: RadarParams, frontend: str, ref_angle: int,
-                           peak_group_radius: int, cfar_method: str,
-                           fft_method: str):
-    """Array-model front-end resolution + validation, shared by the
-    single-chip make_array_processor and parallel.make_sharded_array_processor
-    (one gate, so a mesh model can never auto-resolve differently from the
-    single-chip model it must stay detection-equal to).
-
-    'auto': ref_angle == 0 -> the fully-fused per-beam kernel (front-end +
-    in-kernel 2D decision); ref_angle > 0 -> the fused FRONT-END per beam
-    (detect=False) feeding the angle-extended 3D counting kernel — the
-    decision spans beams, so it cannot ride the per-beam epilogue, but the
-    front-end fusion still applies (docs/PERF_LOG.md round 4: ~3x
-    end-to-end over the XLA per-beam chain).
-
-    Returns ``(frontend, use_fused, use_fused_frontend)``."""
-    if frontend == "auto":
-        frontend = ("pallas" if (jax.default_backend() == "tpu"
-                                 and fft_method == "matmul"
-                                 and (fused_detect_supported(
-                                          p, "float32", peak_group_radius,
-                                          cfar_method)
-                                      if ref_angle == 0
-                                      else fused_frontend_supported(p)))
-                    else "xla")
-    if frontend == "pallas":
-        if ref_angle == 0 and not fused_detect_supported(
-                p, "float32", peak_group_radius, cfar_method):
-            raise ValueError(
-                "frontend='pallas' on the array model at ref_angle == 0 "
-                "needs fused-detect-compatible CfarParams "
-                "(fused_detect_supported)")
-        if ref_angle > 0 and not fused_frontend_supported(p):
-            raise ValueError(
-                "frontend='pallas' at ref_angle > 0 needs the fused "
-                "front-end shape (n_range = n2*128, n2 <= 16)")
-    return (frontend, frontend == "pallas" and ref_angle == 0,
-            frontend == "pallas" and ref_angle > 0)
-
-
-def fused_detect_frame(p: RadarParams, iq, mti_bypass, scale_override, *,
-                       max_dets: int, mti_transient: str = "zero",
-                       magnitude_exact: bool = False,
-                       include_maps: bool = False,
-                       peak_group_radius: int = 0,
-                       mode: str = "float32",
-                       window_rounding: str = "unbiased"):
-    """Fully-fused single-frame step (gate: fused_detect_supported /
-    fused_fixed_detect_supported): the whole chain — front-end, CFAR
-    decision, peak grouping, top-K candidate reduction — in ONE Pallas
-    kernel + the 64-row top-K gather.  Shared by the single-chip pipeline
-    and the pure-frame-DP sharded path (parallel/sharded.py)."""
-    interp = jax.default_backend() != "tpu"
-    if mode == "fixed":
-        from ..ops.frontend_pallas import rdm_frontend_fixed
-        det_s, mag, sat, row_max, n_dets = rdm_frontend_fixed(
-            iq, mti_bypass, scale_override, notch_mode=p.notch_mode,
-            transient=mti_transient, coef_width=p.coef_width,
-            window_rounding=window_rounding, interpret=interp, cfar=p.cfar,
-            emit_mag=include_maps, peak_group_radius=peak_group_radius)
-        n2 = max(p.n_range // 128, 1)
-        n2d = det_s.shape[0] // n2    # > 1 on the long-CPI Doppler split
-        out = DET.topk_detections_sliced(det_s, max_dets=max_dets,
-                                         row_max=row_max, n_dets=n_dets,
-                                         n2d=n2d)
-        # Match the XLA fixed chain's integer dtypes (the kernel carries
-        # integer values in f32).
-        out["mag"] = out["mag"].astype(jnp.int32)
-        out["saturation_count"] = sat
-        out["nonfinite_count"] = jnp.int32(0)
-        if include_maps:
-            out["mag_map"] = mag.astype(jnp.int32)
-            ndl = p.n_doppler // n2d
-            out["det_map"] = jnp.transpose(
-                det_s.reshape(n2, n2d, min(p.n_range, 128), ndl),
-                (2, 0, 3, 1)).reshape(p.n_range,
-                                      p.n_doppler).astype(jnp.int32)
-        return out
-    from ..ops.frontend_pallas import rdm_frontend
-    det_s, mag, nonfinite, row_max, n_dets = rdm_frontend(
-        iq, mti_bypass, notch_mode=p.notch_mode, transient=mti_transient,
-        exact_mag=magnitude_exact,
-        interpret=interp, cfar=p.cfar,
-        detect=True, scale_override=scale_override,
-        emit_mag=include_maps, peak_group_radius=peak_group_radius)
-    n2 = max(p.n_range // 128, 1)
-    n2d = det_s.shape[0] // n2       # > 1 on the long-CPI Doppler split
-    out = DET.topk_detections_sliced(det_s, max_dets=max_dets,
-                                     row_max=row_max, n_dets=n_dets,
-                                     n2d=n2d)
-    out["saturation_count"] = jnp.int32(0)
-    out["nonfinite_count"] = nonfinite
-    if include_maps:
-        out["mag_map"] = mag
-        ndl = p.n_doppler // n2d
-        out["det_map"] = jnp.transpose(
-            det_s.reshape(n2, n2d, min(p.n_range, 128), ndl),
-            (2, 0, 3, 1)).reshape(p.n_range, p.n_doppler)
-    return out
-
-
 def make_processor(params: RadarParams | None = None, mode: str = "float32",
                    fft_method: str = "matmul",
                    precision=jax.lax.Precision.HIGHEST,
@@ -257,15 +50,15 @@ def make_processor(params: RadarParams | None = None, mode: str = "float32",
                    peak_group_radius: int = 0,
                    magnitude_exact: bool = False,
                    cfar_method: str = "auto",
-                   cfar_rank_bits: int | None = 16,
                    include_maps: bool = True,
                    include_debug: bool = False,
-                   frontend: str = "auto",
-                   fuse_detect: bool = True,
                    cfar_geometry: str = "named",
                    fixed_fft: str = "bfp",
                    fixed_fft_scale_sch=None) -> Callable:
     """Build the jitted single-frame processor.
+
+    Every stage's route comes from ``routes.resolve_routes`` (exposed as
+    ``process.routes``); an option no compiled route implements raises.
 
     ``fixed_fft`` (mode='fixed' only): "bfp" (default — the production
     XFFT instances' block-floating-point, golden/fixed_point.bfp_fft) or
@@ -276,15 +69,16 @@ def make_processor(params: RadarParams | None = None, mode: str = "float32",
     per-stage shift schedules; None = the conventional [1]*log2(n)
     1/N scaling per transform (pass ([0]*10, [0]*7)-style zeros to model
     the reference's as-wired x"0001" config word — no scaling, wraps).
-    The scaled option stays on the XLA chain (no fused fixed kernel).
+
+    ``cfar_method``: "auto" (counting OS decision unless debug taps are
+    requested), "count" or "topk" (ops/cfar.cfar_route).
 
     ``cfar_geometry``: "named" (framework default — ref_range/guard_range
     govern the range axis, window wraps per axis) or "hw_stream" — the
     opt-in hw-compat mode reproducing the reference's AS-BUILT streaming
     CFAR (crossed-axis geometry, flat-stream Doppler window, startup skip,
     and the -3-flat-cell detection label offset; ops/cfar.cfar_2d_hw_stream,
-    docs/design_notes.md §4).  hw_stream implies per-cell OS semantics, uses
-    the XLA CFAR formulation (the fused detect epilogue stays off), and
+    docs/design_notes.md §4).  hw_stream implies per-cell OS semantics and
     reports detections / det_map at the hardware's LABEL coordinates.
 
     Returned callable: ``fn(iq, mti_bypass=False, scale_override=0) -> dict``
@@ -302,199 +96,102 @@ def make_processor(params: RadarParams | None = None, mode: str = "float32",
     """
     p = params or RadarParams()
     max_dets = p.tracker.max_dets
-    if cfar_geometry not in ("named", "hw_stream"):
-        raise ValueError(f"cfar_geometry must be 'named' or 'hw_stream', "
-                         f"got {cfar_geometry!r}")
-    hw_cfar = cfar_geometry == "hw_stream"
-    if fixed_fft not in ("bfp", "scaled"):
-        raise ValueError(f"fixed_fft must be 'bfp' or 'scaled', "
-                         f"got {fixed_fft!r}")
-    if fixed_fft == "scaled":
-        if mode != "fixed":
-            raise ValueError("fixed_fft='scaled' applies to mode='fixed'")
-        if frontend == "pallas":
-            raise ValueError("fixed_fft='scaled' has no fused kernel; use "
-                             "frontend='xla' (or 'auto')")
-    if fixed_fft == "scaled":
+    routes = resolve_routes(p, mode=mode, fft_method=fft_method,
+                            cfar_method=cfar_method,
+                            cfar_geometry=cfar_geometry,
+                            include_debug=include_debug,
+                            magnitude_exact=magnitude_exact,
+                            fixed_fft=fixed_fft)
+    hw_cfar = routes.cfar == "hw_stream"
+    scaled_fft = routes.range_fft == "scaled"
+    if scaled_fft:
         _sch = fixed_fft_scale_sch or (
             [1] * (p.n_range.bit_length() - 1),
             [1] * (p.n_doppler.bit_length() - 1))
     else:
         _sch = None
-    if hw_cfar and (p.cfar.variant != "os" or p.cfar.scale_mode != "cell"):
-        raise ValueError(
-            "cfar_geometry='hw_stream' reproduces the as-built hardware "
-            "detector: per-cell OS variant only (os_cfar_2d.vhd has no "
-            "CA/GO/SO or block-scale counterpart)")
-    if hw_cfar and mode == "fixed" and frontend == "pallas":
-        raise ValueError("cfar_geometry='hw_stream' has no fused fixed "
-                         "kernel; use frontend='xla' (or 'auto') with "
-                         "mode='fixed'")
-    if frontend == "auto":
-        # Production default: the fused Pallas front-end on real TPUs when
-        # the frame shape fits its slice layout and no non-default FFT
-        # formulation was requested; the XLA stage chain elsewhere (the
-        # Pallas interpreter is for tests, not throughput).  NOTE the fused
-        # kernel computes with manual bf16x3 (== XLA Precision.HIGH
-        # numerics); pass frontend="xla" to make ``precision``/
-        # ``fft_method`` binding (e.g. exact HIGHEST-precision matmuls).
-        # mode='fixed' never auto-resolves to the kernel: its bf16x6 FFTs
-        # quantize within 1 LSB of the XLA chain but not identically, and
-        # the fixed mode's contract is bit-identical-everywhere by default
-        # — the fast fixed kernel is explicit opt-in (frontend='pallas').
-        frontend = ("pallas" if (jax.default_backend() == "tpu"
-                                 and mode == "float32"
-                                 and frontend_kernel_supported(p)
-                                 and fft_method == "matmul")
-                    else "xla")
-    elif frontend == "pallas" and not frontend_kernel_supported(p):
-        raise ValueError(
-            f"frontend='pallas' needs n_range a multiple of 128 with "
-            f"n_range/128 <= 16; got n_range={p.n_range}")
 
-    # In-kernel clutter-map scale: the fused front-end can emit the block
-    # scale from its VMEM-resident mag slices when the block grid lines up
-    # with its slice layout (scale_block == n_range/128, wrap edges).
-    kernel_scale = (frontend == "pallas" and kernel_scale_supported(p)
-                    and not hw_cfar)
-    # Fully fused path: CFAR detection (and peak grouping) also runs inside
-    # the front-end kernel (the mag map never leaves VMEM) and top-K
-    # extraction consumes the kernel's sliced det layout directly.  Works
-    # for both the block-granular scale (kernel_scale grid) and the
-    # reference-exact per-cell scale.  ``fuse_detect=False`` keeps the
-    # standalone kernels (A/B benchmarking, debug taps).
-    kernel_detect = (fuse_detect and frontend == "pallas" and not hw_cfar
-                     and fused_detect_supported(
-                         p, mode, peak_group_radius, cfar_method,
-                         include_debug))
-    # Fixed-point fused kernel: explicit opt-in only (frontend='pallas'
-    # with mode='fixed'); see fused_fixed_detect_supported.
-    kernel_detect_fixed = (fuse_detect and mode == "fixed"
-                           and frontend == "pallas"
-                           and fused_fixed_detect_supported(
-                               p, peak_group_radius, cfar_method,
-                               include_debug))
-    if mode == "fixed" and frontend == "pallas" and not kernel_detect_fixed:
-        raise ValueError(
-            "frontend='pallas' with mode='fixed' runs the fused fixed-point "
-            "kernel, which needs fuse_detect=True, a wrap-edge os/ca/go/so "
-            "CfarParams fitting the kernel geometry "
-            "(fused_fixed_detect_supported), peak_group_radius <= 8, no "
-            "debug taps, and cfar_method in ('auto', 'pallas')")
+    integer = mode == "fixed"
 
-    def float_path(iq, mti_bypass, scale_override, cfar_fn=None):
-        scale_map = None
-        if frontend == "pallas":
-            # Whole front-end (range FFT + fused slow-time operator +
-            # magnitude) in one VMEM-resident kernel — HBM sees only the
-            # int16 frame in and the f32 map out (ops/frontend_pallas.py).
-            from ..ops.frontend_pallas import rdm_frontend
-            out = rdm_frontend(iq, mti_bypass, notch_mode=p.notch_mode,
-                               transient=mti_transient,
-                               exact_mag=magnitude_exact,
-                               interpret=jax.default_backend() != "tpu",
-                               cfar=p.cfar if kernel_scale else None)
-            mag, scale_map = out if kernel_scale else (out, None)
-        else:
-            re = iq[..., 0].astype(jnp.float32)
-            im = iq[..., 1].astype(jnp.float32)
-            # Range window+FFT fused into one MXU GEMM per component.
+    def float_front(iq, mti_bypass):
+        re = iq[..., 0].astype(jnp.float32)
+        im = iq[..., 1].astype(jnp.float32)
+        # Range window+FFT fused into one GEMM per component.
+        with jax.named_scope("range_fft"):
             re, im = F.fft_apply(re, im, axis=1, window=True,
-                                 method=fft_method, precision=precision)
-            # Whole slow-time chain — corner turn + MTI + window + Doppler
-            # DFT — as ONE matrix contraction over the chirp axis
-            # (ops/fft.py doppler_matrices): chirp-major in, range-major
-            # out, no transpose or per-stage intermediates materialized.
-            # Across chips the corner turn is the all_to_all instead
-            # (parallel/sharded.py).
+                                 method=routes.range_fft, precision=precision)
+        # Whole slow-time chain — corner turn + MTI + window + Doppler
+        # DFT — as ONE matrix contraction over the chirp axis
+        # (ops/fft.py doppler_matrices): chirp-major in, range-major
+        # out, no transpose or per-stage intermediates materialized.
+        # Across devices the corner turn is the all_to_all instead
+        # (parallel/sharded.py).
+        with jax.named_scope("slow_time"):
             re, im = F.doppler_apply(re, im, axis=0, bypass=mti_bypass,
                                      notch_mode=p.notch_mode,
                                      transient=mti_transient,
                                      precision=precision)
-            mag = M.magnitude_float(re, im, exact=magnitude_exact)
-        if cfar_fn is not None:
-            det, threshold, scale = cfar_fn(mag)
-        elif hw_cfar:
-            det, threshold, scale = C.cfar_2d_hw_stream(
-                mag, scale_override, cfar=p.cfar, integer=False,
-                need_debug=include_debug, label_roll=False)
-        else:
-            det, threshold, scale = C.cfar_2d_auto(
-                mag, scale_override, cfar=p.cfar, integer=False,
-                method=cfar_method, rank_bits=cfar_rank_bits,
-                need_debug=include_debug, scale_map=scale_map)
+        with jax.named_scope("magnitude"):
+            mag = M.magnitude_float(re, im,
+                                    exact=routes.magnitude == "exact")
         nonfinite = jnp.sum(~jnp.isfinite(mag)).astype(jnp.int32)
-        return mag, det, threshold, scale, jnp.int32(0), nonfinite
+        return mag, jnp.int32(0), nonfinite
 
-    def fixed_path(iq, mti_bypass, scale_override, cfar_fn=None):
+    def fixed_front(iq, mti_bypass):
         i_v = iq[..., 0].astype(jnp.int32)
         q_v = iq[..., 1].astype(jnp.int32)
-        cr = W.hamming_q15(p.n_range, p.coef_width)
-        i_v, q_v, s1 = W.window_apply_fixed(i_v, q_v, cr[None, :],
-                                            p.coef_width, window_rounding)
-        if fixed_fft == "scaled":
-            i_v, q_v = F.scaled_fft_apply(i_v, q_v, axis=1,
-                                          scale_sch=tuple(_sch[0]))
-            i_v, q_v = i_v.T, q_v.T
-        else:
-            re, im = F.fft_apply(i_v.astype(jnp.float32),
-                                 q_v.astype(jnp.float32),
-                                 axis=1, method=fft_method,
-                                 precision=precision)
-            re, im = F.bfp_quantize(re, im, axis=1)
-            i_v, q_v = re.astype(jnp.int32).T, im.astype(jnp.int32).T
-        i_v, q_v = N.mti_notch_fixed(i_v, q_v, axis=1, mode=p.notch_mode,
-                                     bypass=mti_bypass, transient=mti_transient)
-        cd = W.hamming_q15(p.n_doppler, p.coef_width)
-        i_v, q_v, s2 = W.window_apply_fixed(i_v, q_v, cd[None, :],
-                                            p.coef_width, window_rounding)
-        if fixed_fft == "scaled":
-            re, im = F.scaled_fft_apply(i_v, q_v, axis=1,
-                                        scale_sch=tuple(_sch[1]))
-        else:
-            re, im = F.fft_apply(i_v.astype(jnp.float32),
-                                 q_v.astype(jnp.float32),
-                                 axis=1, method=fft_method,
-                                 precision=precision)
-            re, im = F.bfp_quantize(re, im, axis=1)
-        mag = M.magnitude_fixed(re.astype(jnp.int32), im.astype(jnp.int32))
-        if cfar_fn is not None:
-            det, threshold, scale = cfar_fn(mag)
-        elif hw_cfar:
-            det, threshold, scale = C.cfar_2d_hw_stream(
-                mag, scale_override, cfar=p.cfar, integer=True,
-                need_debug=include_debug, label_roll=False)
-        else:
-            det, threshold, scale = C.cfar_2d_auto(
-                mag, scale_override, cfar=p.cfar, integer=True,
-                method=cfar_method, int_bits=16, need_debug=include_debug)
-        return mag, det, threshold, scale, (s1 + s2).astype(jnp.int32), jnp.int32(0)
+        with jax.named_scope("range_fft"):
+            cr = W.hamming_q15(p.n_range, p.coef_width)
+            i_v, q_v, s1 = W.window_apply_fixed(i_v, q_v, cr[None, :],
+                                                p.coef_width, window_rounding)
+            if scaled_fft:
+                i_v, q_v = F.scaled_fft_apply(i_v, q_v, axis=1,
+                                              scale_sch=tuple(_sch[0]))
+                i_v, q_v = i_v.T, q_v.T
+            else:
+                re, im = F.fft_apply(i_v.astype(jnp.float32),
+                                     q_v.astype(jnp.float32),
+                                     axis=1, method=routes.range_fft,
+                                     precision=precision)
+                re, im = F.bfp_quantize(re, im, axis=1)
+                i_v, q_v = re.astype(jnp.int32).T, im.astype(jnp.int32).T
+        with jax.named_scope("slow_time"):
+            i_v, q_v = N.mti_notch_fixed(i_v, q_v, axis=1,
+                                         mode=p.notch_mode,
+                                         bypass=mti_bypass,
+                                         transient=mti_transient)
+            cd = W.hamming_q15(p.n_doppler, p.coef_width)
+            i_v, q_v, s2 = W.window_apply_fixed(i_v, q_v, cd[None, :],
+                                                p.coef_width, window_rounding)
+            if scaled_fft:
+                re, im = F.scaled_fft_apply(i_v, q_v, axis=1,
+                                            scale_sch=tuple(_sch[1]))
+            else:
+                re, im = F.fft_apply(i_v.astype(jnp.float32),
+                                     q_v.astype(jnp.float32),
+                                     axis=1, method=routes.range_fft,
+                                     precision=precision)
+                re, im = F.bfp_quantize(re, im, axis=1)
+        with jax.named_scope("magnitude"):
+            mag = M.magnitude_fixed(re.astype(jnp.int32),
+                                    im.astype(jnp.int32))
+        return mag, (s1 + s2).astype(jnp.int32), jnp.int32(0)
 
-    path = {"float32": float_path, "fixed": fixed_path}[mode]
+    front = float_front if routes.slow_time == "folded" else fixed_front
 
-    @jax.jit
-    def _process(iq, mti_bypass, scale_override):
-        if kernel_detect or kernel_detect_fixed:
-            return fused_detect_frame(
-                p, iq, mti_bypass, scale_override, max_dets=max_dets,
-                mti_transient=mti_transient,
-                magnitude_exact=magnitude_exact,
-                include_maps=include_maps,
-                peak_group_radius=peak_group_radius,
-                mode=mode, window_rounding=window_rounding)
-        mag, det, threshold, scale, sat, nonfinite = path(
-            iq, mti_bypass, scale_override)
+    def finish(mag, det, threshold, scale, sat, nonfinite, label_shift):
+        """Grouping, label roll (hw_stream) and top-K extraction."""
         if peak_group_radius > 0:
-            det = C.peak_group(det, radius=peak_group_radius)
-        if hw_cfar:
+            with jax.named_scope("grouping"):
+                det = C.peak_group(det, radius=peak_group_radius)
+        if label_shift:
             # Grouping ran in decision (true-cell) order — physical
             # adjacency; only now rotate into the hardware's label space
             # (C.hw_stream_label_shift: true neighbors straddling the
             # 3-cell seam would otherwise be label rows apart).
-            shift = C.hw_stream_label_shift(p.cfar, p.n_doppler,
-                                            streaming=False)
-            det = jnp.roll(det.reshape(-1), -shift).reshape(det.shape)
-        out = DET.topk_detections(det, max_dets=max_dets)
+            det = jnp.roll(det.reshape(-1), -label_shift).reshape(det.shape)
+        with jax.named_scope("topk"):
+            out = DET.topk_detections(det, max_dets=max_dets)
         out["saturation_count"] = sat
         out["nonfinite_count"] = nonfinite
         if include_maps:
@@ -504,6 +201,22 @@ def make_processor(params: RadarParams | None = None, mode: str = "float32",
             out["threshold_map"] = threshold
             out["scale_map"] = scale
         return out
+
+    @jax.jit
+    def _process(iq, mti_bypass, scale_override):
+        mag, sat, nonfinite = front(iq, mti_bypass)
+        with jax.named_scope("cfar"):
+            if hw_cfar:
+                det, threshold, scale = C.cfar_2d_hw_stream(
+                    mag, scale_override, cfar=p.cfar, integer=integer,
+                    need_debug=include_debug, label_roll=False)
+            else:
+                det, threshold, scale = C.cfar_2d_auto(
+                    mag, scale_override, cfar=p.cfar, integer=integer,
+                    method=routes.cfar, need_debug=include_debug)
+        shift = (C.hw_stream_label_shift(p.cfar, p.n_doppler,
+                                         streaming=False) if hw_cfar else 0)
+        return finish(mag, det, threshold, scale, sat, nonfinite, shift)
 
     def process(iq, mti_bypass=False, scale_override=0):
         # Strict single-frame shape: a batched (B, nd, nr, 2) array would
@@ -527,34 +240,16 @@ def make_processor(params: RadarParams | None = None, mode: str = "float32",
         @functools.partial(jax.jit, static_argnames=("first",))
         def _process_stream(iq, mti_bypass, scale_override, hist,
                             first=False):
-            def cfar_fn(mag):
-                d, t, s, new_hist = C.cfar_2d_hw_stream(
-                    mag, scale_override, cfar=p.cfar,
-                    integer=(mode == "fixed"), hist=hist,
-                    streaming=True, first=first,
+            mag, sat, nonfinite = front(iq, mti_bypass)
+            with jax.named_scope("cfar"):
+                det, threshold, scale, new_hist = C.cfar_2d_hw_stream(
+                    mag, scale_override, cfar=p.cfar, integer=integer,
+                    hist=hist, streaming=True, first=first,
                     need_debug=include_debug, label_roll=False)
-                cfar_fn.new_hist = new_hist
-                return d, t, s
-
-            mag, det, threshold, scale, sat, nonfinite = path(
-                iq, mti_bypass, scale_override, cfar_fn)
-            if peak_group_radius > 0:
-                det = C.peak_group(det, radius=peak_group_radius)
-            # Group in decision order, then rotate into label space
-            # (see _process).
             shift = C.hw_stream_label_shift(p.cfar, p.n_doppler,
                                             streaming=True)
-            det = jnp.roll(det.reshape(-1), -shift).reshape(det.shape)
-            out = DET.topk_detections(det, max_dets=max_dets)
-            out["saturation_count"] = sat
-            out["nonfinite_count"] = nonfinite
-            if include_maps:
-                out["mag_map"] = mag
-                out["det_map"] = det
-            if include_debug:
-                out["threshold_map"] = threshold
-                out["scale_map"] = scale
-            return out, cfar_fn.new_hist
+            return (finish(mag, det, threshold, scale, sat, nonfinite, shift),
+                    new_hist)
 
         def process_stream(iq, mti_bypass=False, scale_override=0,
                            hist=None):
@@ -579,7 +274,26 @@ def make_processor(params: RadarParams | None = None, mode: str = "float32",
         process.stream = process_stream
 
     process.jitted = _process
+    process.routes = routes
     return process
+
+
+def float_beam_frontend(re, im, mti_bypass, p: RadarParams, routes,
+                        precision, mti_transient: str):
+    """One beam's float front-end (range FFT -> folded slow-time operator
+    -> magnitude) on beamformed (n_doppler, n_range) I/Q, on the stage
+    routes of ``routes``; shared by the single-chip and the beam-sharded
+    array models."""
+    with jax.named_scope("range_fft"):
+        re, im = F.fft_apply(re, im, axis=1, window=True,
+                             method=routes.range_fft, precision=precision)
+    with jax.named_scope("slow_time"):
+        re, im = F.doppler_apply(re, im, axis=0, bypass=mti_bypass,
+                                 notch_mode=p.notch_mode,
+                                 transient=mti_transient,
+                                 precision=precision)
+    with jax.named_scope("magnitude"):
+        return M.magnitude_float(re, im, exact=routes.magnitude == "exact")
 
 
 def make_array_processor(params: RadarParams | None = None,
@@ -594,36 +308,22 @@ def make_array_processor(params: RadarParams | None = None,
                          taper: str | None = None,
                          cfar_method: str = "auto",
                          include_maps: bool = True,
-                         frontend: str = "auto",
                          peak_group_radius: int = 0,
                          beam_group_radius: int = 0) -> Callable:
     """Array-radar model (the BASELINE config-4 angle extension at model
     level): element-space I/Q -> ULA phase-shift beamformer (ops/beamform,
-    one MXU matmul over the element axis) -> per-beam range-Doppler
-    front-end -> 3D angle-extended CFAR (ops/cfar.cfar_3d) -> top-K
-    detections with (beam, range, doppler) coordinates.
-
-    ``frontend`` follows make_processor: "auto" runs the fully-fused
-    Pallas front-end+detect kernel per beam when ``ref_angle == 0`` (the
-    per-beam decision is then exactly the single-channel 2D CFAR — the
-    kernel accepts the beamformed float I/Q directly) and the gates of
-    fused_detect_supported hold; the vmapped XLA chain + cfar_3d
-    otherwise (always for ``ref_angle > 0``, whose training set spans
-    neighbor beams — there cfar_3d itself auto-resolves its decision to
-    the angle-extended counting kernel on TPU, the only formulation that
-    fits full-size cubes on-chip; docs/PERF_LOG.md round 3).
+    one matmul over the element axis) -> per-beam range-Doppler front-end
+    -> 3D angle-extended CFAR (ops/cfar.cfar_3d) -> top-K detections with
+    (beam, range, doppler) coordinates.  ``ref_angle == 0`` decides each
+    beam with the 2D route of ``cfar_method``; ``ref_angle > 0`` spans
+    neighbor beams with the stacked 3D body.
 
     Peak grouping: ``peak_group_radius`` groups each beam's 2D map
-    (ops/cfar.peak_group semantics — in-kernel on the fused path), then
-    ``beam_group_radius`` collapses cross-beam duplicates of the same
-    (range, doppler) cell to the strongest beam (ops/cfar.peak_group_beams
-    — the beam axis is not periodic).  A target detected in several
-    adjacent beams otherwise floods the fixed-capacity detection buffer
-    with copies of itself.  Cross-frontend caveat: grouping keeps strict
-    local maxima, so skirt cells whose magnitudes sit within the
-    bf16x3/HIGHEST numeric gap may pick a different (equally valid)
-    survivor under frontend='pallas' than under the XLA chain — the
-    detection sets agree up to such near-tie flips, not exactly.
+    (ops/cfar.peak_group semantics), then ``beam_group_radius`` collapses
+    cross-beam duplicates of the same (range, doppler) cell to the strongest
+    beam (ops/cfar.peak_group_beams — the beam axis is not periodic).  A
+    target detected in several adjacent beams otherwise floods the
+    fixed-capacity detection buffer with copies of itself.
 
     Returned callable: ``fn(iq, mti_bypass=False, scale_override=0)`` with
     iq int16[(n_elems, n_doppler, n_range, 2)].  Output adds ``beam_bin``
@@ -633,121 +333,36 @@ def make_array_processor(params: RadarParams | None = None,
     p = params or RadarParams()
     from ..ops import beamform as BF
     max_dets = p.tracker.max_dets
-    frontend, use_fused, use_fused_frontend = resolve_array_frontend(
-        p, frontend, ref_angle, peak_group_radius, cfar_method, fft_method)
+    routes = resolve_routes(p, fft_method=fft_method,
+                            cfar_method=cfar_method,
+                            magnitude_exact=magnitude_exact,
+                            ref_angle=ref_angle)
 
     @jax.jit
     def _process(iq, mti_bypass, scale_override):
         re = iq[..., 0].astype(jnp.float32)
         im = iq[..., 1].astype(jnp.float32)
-        br, bi = BF.beamform(re, im, n_beams, spacing_wl=spacing_wl,
-                             max_angle_deg=max_angle_deg, taper=taper,
-                             precision=precision)
-
-        if use_fused:
-            # Fully-fused per-beam kernel on the beamformed float I/Q
-            # (2D peak grouping runs in-kernel).
-            from ..ops.frontend_pallas import rdm_frontend
-            biq = jnp.stack([br, bi], axis=-1)      # (B, nd, nr, 2) f32
-            det_s, mag_s, nf, rmax, ndets = jax.vmap(
-                lambda x: rdm_frontend(
-                    x, mti_bypass, notch_mode=p.notch_mode,
-                    transient=mti_transient, exact_mag=magnitude_exact,
-                    interpret=jax.default_backend() != "tpu", cfar=p.cfar,
-                    detect=True, scale_override=scale_override,
-                    peak_group_radius=peak_group_radius,
-                    emit_mag=include_maps))(biq)
-            n2 = max(p.n_range // 128, 1)
-            n1 = min(p.n_range, 128)
-            n2d = det_s.shape[1] // n2    # long-CPI Doppler parity planes
-            ndl = p.n_doppler // n2d
-            sl = n2 * n2d * n1            # sliced rows per beam
-
-            def remap(out):
-                row = out["range_bin"]
-                out["beam_bin"] = row // sl
-                r = row % sl
-                plane = r // n1
-                out["range_bin"] = (r % n1) * n2 + plane // n2d
-                if n2d > 1:
-                    out["doppler_bin"] = (out["doppler_bin"] * n2d
-                                          + plane % n2d)
-                return out
-
-            def cube(planes):
-                return jnp.transpose(
-                    planes.reshape(n_beams, n2, n2d, n1, ndl),
-                    (0, 3, 1, 4, 2)).reshape(n_beams, p.n_range,
-                                             p.n_doppler)
-
-            out = {"saturation_count": jnp.int32(0),
-                   "nonfinite_count": jnp.sum(nf).astype(jnp.int32)}
+        with jax.named_scope("beamform"):
+            br, bi = BF.beamform(re, im, n_beams, spacing_wl=spacing_wl,
+                                 max_angle_deg=max_angle_deg, taper=taper,
+                                 precision=precision)
+        cube = jax.vmap(lambda r, i: float_beam_frontend(
+            r, i, mti_bypass, p, routes, precision, mti_transient))(br, bi)               # (B, n_range, n_doppler)
+        with jax.named_scope("cfar"):
+            det, _, _ = C.cfar_3d(cube, scale_override, cfar=p.cfar,
+                                  integer=False, ref_angle=ref_angle,
+                                  guard_angle=guard_angle,
+                                  method=routes.cfar if ref_angle == 0
+                                  else "auto", need_debug=False)
+        with jax.named_scope("grouping"):
+            if peak_group_radius > 0:
+                det = jax.vmap(
+                    lambda d: C.peak_group(d, radius=peak_group_radius))(det)
             if beam_group_radius > 0:
-                # Cross-beam grouping compares the SAME cell across beams,
-                # and the sliced layout is one fixed permutation shared by
-                # every beam — so it runs directly on the det slices (no
-                # de-interleave transpose), as ONE Pallas pass that also
-                # emits the post-group row maxes and detection count
-                # (cfar_pallas.peak_group_beams_pallas) — XLA reads back
-                # only the 64 winning rows (docs/PERF_LOG.md round 4).
-                from ..ops.cfar_pallas import peak_group_beams_pallas
-                det_g, rmax2, nd2 = peak_group_beams_pallas(
-                    det_s.reshape(n_beams, sl, ndl),
-                    radius=beam_group_radius,
-                    interpret=jax.default_backend() != "tpu")
-                flat = det_g.reshape(n_beams * sl, ndl)
-                out.update(DET.topk_detections(
-                    flat, max_dets=max_dets, row_max=rmax2, n_dets=nd2))
-                remap(out)
-                if include_maps:
-                    out["mag_cube"] = mag_s
-                    out["det_cube"] = cube(det_g)
-                return out
-            flat = det_s.reshape(n_beams * sl, ndl)
-            out.update(DET.topk_detections(flat, max_dets=max_dets,
-                                           row_max=rmax.reshape(-1),
-                                           n_dets=jnp.sum(ndets)))
-            remap(out)
-            if include_maps:
-                out["mag_cube"] = mag_s
-                out["det_cube"] = cube(det_s)
-            return out
-
-        if use_fused_frontend:
-            # ref_angle > 0: fused Pallas front-end per beam (iq -> mag in
-            # VMEM, detect=False), decision in the angle-extended 3D
-            # counting kernel below (cfar_3d method='auto' resolves to it
-            # on TPU).
-            from ..ops.frontend_pallas import rdm_frontend
-            biq = jnp.stack([br, bi], axis=-1)      # (B, nd, nr, 2) f32
-            cube = jax.vmap(
-                lambda x: rdm_frontend(
-                    x, mti_bypass, notch_mode=p.notch_mode,
-                    transient=mti_transient, exact_mag=magnitude_exact,
-                    interpret=jax.default_backend() != "tpu"))(biq)
-        else:
-            def beam_frontend(re1, im1):
-                re2, im2 = F.fft_apply(re1, im1, axis=1, window=True,
-                                       method=fft_method, precision=precision)
-                re3, im3 = F.doppler_apply(re2, im2, axis=0,
-                                           bypass=mti_bypass,
-                                           notch_mode=p.notch_mode,
-                                           transient=mti_transient,
-                                           precision=precision)
-                return M.magnitude_float(re3, im3, exact=magnitude_exact)
-
-            cube = jax.vmap(beam_frontend)(br, bi)  # (B, n_range, n_doppler)
-        det, _, _ = C.cfar_3d(cube, scale_override, cfar=p.cfar,
-                              integer=False, ref_angle=ref_angle,
-                              guard_angle=guard_angle, method=cfar_method,
-                              need_debug=False)
-        if peak_group_radius > 0:
-            det = jax.vmap(
-                lambda d: C.peak_group(d, radius=peak_group_radius))(det)
-        if beam_group_radius > 0:
-            det = C.peak_group_beams(det, radius=beam_group_radius)
+                det = C.peak_group_beams(det, radius=beam_group_radius)
         flat = det.reshape(n_beams * p.n_range, p.n_doppler)
-        out = DET.topk_detections(flat, max_dets=max_dets)
+        with jax.named_scope("topk"):
+            out = DET.topk_detections(flat, max_dets=max_dets)
         out["beam_bin"] = out["range_bin"] // p.n_range
         out["range_bin"] = out["range_bin"] % p.n_range
         out["saturation_count"] = jnp.int32(0)
@@ -767,6 +382,7 @@ def make_array_processor(params: RadarParams | None = None,
                         jnp.asarray(scale_override, dtype=jnp.int32))
 
     process.jitted = _process
+    process.routes = routes
     return process
 
 
@@ -782,6 +398,7 @@ def make_batch_processor(params: RadarParams | None = None, **kw) -> Callable:
                        jnp.asarray(scale_override, dtype=jnp.int32))
 
     process.jitted = batched
+    process.routes = single.routes
     return process
 
 
@@ -800,4 +417,5 @@ def make_batch_array_processor(params: RadarParams | None = None,
                        jnp.asarray(scale_override, dtype=jnp.int32))
 
     process.jitted = batched
+    process.routes = single.routes
     return process

@@ -1,6 +1,6 @@
 """TWS alpha-beta tracker (JAX) — jittable, bit-exact vs the golden model.
 
-TPU-native reformulation of the rtl/src/tws_tracker.vhd scan FSM:
+Array reformulation of the rtl/src/tws_tracker.vhd scan FSM:
 
 * PREDICT/UPDATE become vectorized integer array ops over the 32-track file;
 * the sequential nearest-neighbor ASSOCIATE loop (earlier tracks claim

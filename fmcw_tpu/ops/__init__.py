@@ -1,3 +1,3 @@
-"""JAX/Pallas compute kernels for the radar chain."""
+"""JAX compute stages for the radar chain (and one Pallas kernel)."""
 
 from . import window, fft, notch, magnitude, cfar, detect, beamform  # noqa: F401

@@ -1,12 +1,12 @@
-"""Beamforming (JAX) — element-space to beam-space on the MXU.
+"""Beamforming (JAX) — element-space to beam-space as one matmul.
 
 The reference processes a single receive channel; its angle dimension exists
 only as the BASELINE config-4 "angle-bin extension" consumed by the 3D CFAR
 (ops/cfar.cfar_3d).  This module supplies that dimension for array radars: a
 uniform-linear-array phase-shift beamformer expressed as one complex matmul
 over the element axis — a (B, E) steering matrix against (E, n_doppler,
-n_range) element-space I/Q, which XLA maps straight onto the MXU and fuses
-with the surrounding pipeline stages.
+n_range) element-space I/Q, which XLA hands to a GEMM and fuses with the
+surrounding pipeline stages.
 
 Conventions: element spacing ``spacing_wl`` in wavelengths (default λ/2),
 beams steered to ``sin(theta)`` values ``u`` in [-sin(max_angle),
@@ -60,7 +60,7 @@ def beamform(re: jnp.ndarray, im: jnp.ndarray, n_beams: int,
              taper: str | None = None,
              precision=jax.lax.Precision.HIGHEST):
     """Element-space to beam-space: (n_elems, ...) complex I/Q pair ->
-    (n_beams, ...) via y_b = sum_e W[b, e] * x_e (4 real MXU matmuls)."""
+    (n_beams, ...) via y_b = sum_e W[b, e] * x_e (4 real matmuls)."""
     n_elems = re.shape[0]
     wr, wi = steering_matrix(n_elems, n_beams, spacing_wl, max_angle_deg,
                              taper)

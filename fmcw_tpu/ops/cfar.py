@@ -1,18 +1,23 @@
-"""2D CFAR detection kernels (JAX).
+"""2D CFAR detection (JAX).
 
-TPU-native reformulation of rtl/src/os_cfar_2d.vhd.  The reference streams one
+Array reformulation of rtl/src/os_cfar_2d.vhd.  The reference streams one
 cell per clock through a line buffer + 2D shift register and bubble-sorts the
 128 training cells per cell (the design's computational hot spot, SURVEY.md
-CS-1).  Here the whole (n_range, n_doppler) map is processed at once:
+CS-1).  Here the whole (n_range, n_doppler) map is processed at once, by one
+of two OS formulations (``cfar_route`` picks one):
 
-* the sliding window becomes ``n_ref`` shifted views of the (circularly or
-  reflect-) padded map, stacked on a trailing axis — XLA turns these into
-  cheap fused slices;
-* the rank selection becomes ``lax.top_k`` over the trailing axis (the
-  rank_idx-th ascending order statistic is the (n_ref - rank_idx)-th largest);
-* window sums for the adaptive-scale mean and the CA/GO/SO variants use
-  separable box sums (two 1D passes), never materializing per-cell windows.
+* ``"count"`` (cfar_2d_count): the decision by counting.  For the k-th
+  largest training value est, ``CUT > est*scale`` holds exactly when fewer
+  than k training cells reach ``CUT/scale``, so each of the ``n_ref``
+  shifted views of the padded map is compared once per cell and never
+  stacked.  No threshold tap.
+* ``"topk"`` (cfar_2d): the ``n_ref`` shifted views stacked on a trailing
+  axis and ranked with ``lax.top_k`` (the rank_idx-th ascending order
+  statistic is the (n_ref - rank_idx)-th largest).  The reference for the
+  counting route and the source of the dbg_threshold tap.
 
+Window sums for the adaptive-scale mean and the CA/GO/SO variants use
+separable box sums (two 1D passes), never materializing per-cell windows.
 All variants share the adaptive threshold scaling of os_cfar_2d.vhd:187-199
 and the runtime scale_override control port.
 """
@@ -99,26 +104,16 @@ def block_scale_map(mag_map: jnp.ndarray, cfar: CfarParams,
 
     JAX mirror of golden.fixed_point.block_scale_map (see there and
     CfarParams.scale_mode for the semantics); float mode uses true division
-    and 1.5x/0.5x factors like the per-cell float path.  Computed *outside*
-    the Pallas detection kernel, which then skips its per-cell mean + hi/lo
-    classification passes entirely.
+    and 1.5x/0.5x factors like the per-cell float path.  The detection
+    then skips its per-cell mean + hi/lo classification passes entirely.
 
-    TPU-shape discipline (every slower route measured on hardware first): a
-    (Rb, B, Db, B) formulation pads the size-B minor dims to full lanes
-    (~3.5x slower), and 0/1-matmul broadcasts put a fusion barrier + map
-    materialization at each use (~1.4x slower).  What ships:
-
-      * block grids live **transposed** (Db, Rb) so their minor dim is Rb
-        (full lanes at the default geometry), and lane-group reductions
-        become sublane-group reductions after one small transpose;
-      * reductions are native-tile reshape-reduces ((n, B, lanes) sum over
-        the middle sublane axis);
+      * block grids live transposed (Db, Rb), reduced by reshape-sums;
       * the hi and lo indicators are **packed into one integer**
         (ind_hi + ind_lo << 12) so one reduce chain serves both counts;
         12-bit fields hold counts up to 9*B^2 = 3969 neighborhood cells
         (B <= 21, validated below) with no carry between fields;
-      * block->cell broadcasts are jnp.repeat on sublanes (fuses into the
-        consuming compare).
+      * block->cell broadcasts are jnp.repeat (fuses into the consuming
+        compare).
 
     All arithmetic is exact in both modes: integer throughout for
     ``integer=True``, and for float every reduction is a straight f32 sum
@@ -265,47 +260,180 @@ def _order_statistic(refs: jnp.ndarray, rank_idx: int) -> jnp.ndarray:
     return top[..., k - 1]
 
 
+CFAR_ROUTES = ("count", "topk")
+
+
+def cfar_route(cfar: CfarParams, method: str = "auto",
+               need_debug: bool = True) -> str:
+    """The 2D decision route for ``method``: "count" (cfar_2d_count) or
+    "topk" (cfar_2d — the ranked stack for OS, box sums for CA/GO/SO).
+
+    "auto" counts for the OS variant when the threshold tap is unused and
+    takes cfar_2d otherwise.  A removed or unknown route raises; nothing
+    falls back silently."""
+    if method == "auto":
+        return "count" if cfar.variant == "os" and not need_debug else "topk"
+    if method not in CFAR_ROUTES:
+        raise ValueError(f"cfar method {method!r} has no compiled route; "
+                         f"choose 'auto' or one of {CFAR_ROUTES}")
+    if method == "count":
+        if cfar.variant != "os":
+            raise ValueError("the counting CFAR decides the os variant only; "
+                             "ca/go/so take method='topk' (box sums)")
+        if need_debug:
+            raise ValueError("the counting CFAR computes no threshold tap; "
+                             "pass need_debug=False or method='topk'")
+    return method
+
+
 def cfar_2d_auto(mag_map: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
                  cfar: CfarParams = CfarParams(), integer: bool = False,
                  prepadded_range: bool = False, method: str = "auto",
-                 rank_bits: int | None = None, int_bits: int = 17,
                  need_debug: bool = True,
                  scale_map: jnp.ndarray | None = None):
-    """Dispatch between the XLA formulation (this module) and the Pallas
-    kernels (ops/cfar_pallas.py).  ``auto`` uses Pallas for the OS variant on
-    TPU; XLA for CA/GO/SO and on non-TPU backends (where Pallas would run
-    interpreted — available explicitly via method="pallas").
-
-    ``need_debug=False`` (and an OS-variant Pallas dispatch) selects the
-    count-only detection kernel, which skips the rank selection entirely:
-    the returned det_map/scale match the XLA path's decisions exactly in
-    integer mode and decision-equivalently in float per-cell mode (the
-    kernel's adaptive-scale mean uses the _ref_sums box tree, the XLA OS
-    branch sums the ref stack — ulp-different means could flip a hi/lo
-    class only on an exact-boundary float input); ``threshold`` comes back
-    as None — only pass False when the dbg_threshold tap is unused
-    (include_debug=False pipelines)."""
-    if method == "auto":
-        method = ("pallas" if cfar.variant == "os"
-                  and jax.default_backend() == "tpu" else "xla")
-    if method == "pallas" and need_debug and cfar.scale_mode == "block":
-        method = "xla"  # threshold taps for block mode come from the XLA path
-    if method == "pallas":
-        from .cfar_pallas import cfar_2d_pallas, cfar_2d_pallas_detect
-        interpret = jax.default_backend() != "tpu"
-        if not need_debug:
-            det, scale = cfar_2d_pallas_detect(
-                mag_map, scale_override, cfar=cfar, integer=integer,
-                prepadded_range=prepadded_range, interpret=interpret,
-                int_bits=int_bits, scale_map=scale_map)
-            return det, None, scale
-        return cfar_2d_pallas(mag_map, scale_override, cfar=cfar,
-                              integer=integer,
-                              prepadded_range=prepadded_range,
-                              interpret=interpret, rank_bits=rank_bits,
-                              int_bits=int_bits)
+    """CFAR over the route ``cfar_route(cfar, method, need_debug)`` names.
+    Returns (det_map, threshold, scale) like cfar_2d; on the counting route
+    ``threshold`` is None (only pass need_debug=False when the
+    dbg_threshold tap is unused)."""
+    if cfar_route(cfar, method, need_debug) == "count":
+        det, scale = cfar_2d_count(mag_map, scale_override, cfar=cfar,
+                                   integer=integer,
+                                   prepadded_range=prepadded_range,
+                                   scale_map=scale_map)
+        return det, None, scale
     return cfar_2d(mag_map, scale_override, cfar=cfar, integer=integer,
                    prepadded_range=prepadded_range, scale_map=scale_map)
+
+
+def _count_threshold(cut: jnp.ndarray, scale, integer: bool) -> jnp.ndarray:
+    """The least training value q with ``q*scale >= cut``, per cell: then
+    ``count(refs >= q) < k`` is exactly ``cut > est*scale`` for the k-th
+    largest training value est, without ranking.
+
+    Integer: the ceiling ``(cut + s - 1) // s``.  Float: v -> RN(v*s) is
+    monotone, so the bound is one float, and it lies within 2 ulps below
+    RN(cut/s); probing those candidates gives it exactly
+    (tests/test_cfar_count.py::test_count_float_qmin_fuzz)."""
+    if integer:
+        s = jnp.maximum(jnp.asarray(scale, cut.dtype), 1)
+        return (cut + s - 1) // s
+    sf = jnp.asarray(scale, jnp.float32)
+    bc = jax.lax.bitcast_convert_type
+    ti = bc(cut / sf, jnp.int32)
+    q = bc(ti + 1, jnp.float32)
+    for delta in (0, -1, -2):
+        c = bc(ti + delta, jnp.float32)
+        q = jnp.where(c * sf >= cut, c, q)
+    return q
+
+
+def _scale_select(hi, lo, cfar: CfarParams, so) -> jnp.ndarray:
+    """{scale_min, scale_nom, scale_max} from the clutter class, with the
+    nonzero scale_override winning (os_cfar_2d.vhd:187-199)."""
+    scale = jnp.where(hi, cfar.scale_max,
+                      jnp.where(lo, cfar.scale_min, cfar.scale_nom))
+    return jnp.where(so != 0, so, scale)
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("cfar", "integer", "prepadded_range",
+                                    "impl", "interpret"))
+def cfar_2d_count(mag_map: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
+                  cfar: CfarParams = CfarParams(), integer: bool = False,
+                  prepadded_range: bool = False,
+                  scale_map: jnp.ndarray | None = None,
+                  impl: str = "auto", interpret: bool = False):
+    """OS-CFAR decision by counting (no training stack, no rank selection).
+
+    For the k-th largest training value est (k = n_ref - rank_idx):
+
+        est >  T  <=>  count(refs >  T) >= k
+        est <  T  <=>  count(refs >= T) <  k
+        cut > est*scale  <=>  count(refs >= q) < k   (q: _count_threshold)
+
+    One counting pass over the n_ref shifted views of the padded map
+    yields the two clutter-class counts and the decision count for each
+    scale the class can pick.  Returns (det_map, scale): integer mode is
+    bit-exact against cfar_2d; float mode is decision-equivalent (the
+    adaptive-scale mean here is the _ref_sums box tree, cfar_2d's OS branch
+    sums its stack — an ulp apart, which can flip a hi/lo class only on an
+    exact-boundary input).  Arguments as cfar_2d; ``scale_map`` supplies the
+    block-mode scale of a range-sharded map (block_scale_map_sharded).
+
+    ``impl`` picks who counts: "kernel" the Pallas counting kernel of
+    ops/cfar_count_gpu (Triton; ``interpret=True`` runs it on the CPU for
+    tests), "jnp" shifted-slice compares that XLA fuses, "auto" the kernel
+    where the program is lowered for CUDA and jnp elsewhere
+    (lax.platform_dependent).  The counts, and so the results, are equal."""
+    if cfar.variant != "os":
+        raise ValueError("cfar_2d_count decides the os variant only; "
+                         "use cfar_2d for ca/go/so")
+    if impl not in ("auto", "jnp", "kernel"):
+        raise ValueError(f"impl must be 'auto', 'jnp' or 'kernel', "
+                         f"got {impl!r}")
+    m = mag_map
+    in_dtype = m.dtype
+    if jnp.issubdtype(in_dtype, jnp.integer) and in_dtype.itemsize < 4:
+        m = m.astype(jnp.int32)
+    hr, hd = cfar.halo_range, cfar.halo_doppler
+    p = _pad2d(m, hr, hd, cfar.edge_mode, prepadded_range)
+    R = m.shape[0] - 2 * hr if prepadded_range else m.shape[0]
+    D = m.shape[1]
+    offsets = tuple(_window_offsets(cfar))
+
+    def view(q, dr, dd):
+        return q[hr + dr:hr + dr + R, hd + dd:hd + dd + D]
+
+    def counts(thresholds, strict):
+        def by_jnp(q, *ts):
+            return tuple(
+                sum(((view(q, dr, dd) > t) if st else (view(q, dr, dd) >= t))
+                    .astype(jnp.int32) for dr, dd in offsets)
+                for t, st in zip(ts, strict))
+
+        def by_kernel(p, *ts):
+            from .cfar_count_gpu import count_window
+            return count_window(p, ts, offsets, tuple(strict), hr, hd,
+                                interpret=interpret)
+
+        if impl == "jnp":
+            return by_jnp(p, *thresholds)
+        if impl == "kernel":
+            return by_kernel(p, *thresholds)
+        return jax.lax.platform_dependent(p, *thresholds, cuda=by_kernel,
+                                          default=by_jnp)
+
+    cut = view(p, 0, 0)
+    k = cfar.n_ref - cfar.rank_idx
+    so = jnp.asarray(scale_override)
+    if cfar.scale_mode == "block":
+        if scale_map is not None:
+            scale = scale_map.astype(jnp.int32)
+        elif prepadded_range:
+            raise ValueError(
+                "scale_mode='block' with a prepadded (sharded) map needs "
+                "the halo-exchanged scale_map from block_scale_map_sharded")
+        else:
+            scale = block_scale_map(cut, cfar, integer)
+        scale = jnp.where(so != 0, so, scale)
+        (n_ge,) = counts([_count_threshold(cut, scale, integer)], [False])
+    else:
+        sum_refs = _ref_sums(m, cfar, prepadded_range)[0]
+        if integer:
+            mean = sum_refs // cfar.n_ref
+            t_hi, t_lo = mean + (mean >> 1), mean >> 1
+        else:
+            mean = sum_refs / cfar.n_ref
+            t_hi, t_lo = 1.5 * mean, 0.5 * mean
+        qs = [_count_threshold(cut, jnp.where(so != 0, so, s), integer)
+              for s in (cfar.scale_min, cfar.scale_nom, cfar.scale_max)]
+        c_hi, c_lo, n_lo, n_nom, n_hi = counts(
+            [t_hi, t_lo] + qs, [True, False, False, False, False])
+        hi, lo = c_hi >= k, c_lo < k
+        scale = _scale_select(hi, lo, cfar, so)
+        n_ge = jnp.where(hi, n_hi, jnp.where(lo, n_lo, n_nom))
+    det = jnp.where((n_ge < k) & (cut > 0), cut, jnp.zeros_like(cut))
+    return det.astype(in_dtype), scale.astype(m.dtype)
 
 
 @functools.partial(jax.jit,
@@ -371,27 +499,23 @@ def cfar_2d(mag_map: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
             mean = sum_refs / cfar.n_ref
             hi = est > 1.5 * mean
             lo = est < 0.5 * mean
-        scale = jnp.where(hi, cfar.scale_max, jnp.where(lo, cfar.scale_min,
-                                                        cfar.scale_nom))
+        scale = _scale_select(hi, lo, cfar, 0)
     scale = jnp.where(so != 0, so, scale).astype(m.dtype)
     threshold = est * scale
     det = jnp.where(cut > threshold, cut, jnp.zeros_like(cut))
     return det.astype(in_dtype), threshold, scale
 
 
-def _hw_stream_decide_xla(ext, start0, R, D, S, cfar, integer,
+def _hw_stream_decide(ext, start0, R, D, S, cfar, integer,
                           scale_override, need_debug, pairs, layout):
-    """XLA formulation of the hw-compat per-cell decision over the flat
-    stream.  Returns flat (det, threshold, scale) in decision (true-cell)
-    order; the caller applies the emission window and label roll.
+    """The hw-compat per-cell decision over the flat stream, by counting
+    (cfar_2d_count's formulation).  Returns flat (det, threshold, scale) in
+    decision (true-cell) order; the caller applies the emission window and
+    label roll.
 
     ``layout`` selects how the 128 training views are built — "flat"
     (misaligned 1D dynamic_slices of the ext stream) or "2d" (static
-    row-block slices + lane concat of a row-aligned reshape).  Measured on
-    hardware the two are within noise of each other (both materialize every
-    view; docs/PERF_LOG.md round 3) — the production TPU path is the Pallas
-    kernel (_hw_stream_decide_pallas), where the views are VMEM-resident
-    plane reads."""
+    row-block slices + lane concat of a row-aligned reshape)."""
     offs = [dr * D + dc for dr, dc in pairs]
     if layout == "2d":
         pad_head = (-start0) % D
@@ -428,12 +552,10 @@ def _hw_stream_decide_xla(ext, start0, R, D, S, cfar, integer,
     so = jnp.asarray(scale_override)
     k = cfar.n_ref - cfar.rank_idx
 
-    # Decision by COUNTING (the Pallas kernels' formulation): est < q
-    # <=> #{refs >= q} < k, est > t <=> #{refs > t} >= k.  This never
-    # materializes the (S, n_ref) rank stack — each shifted view fuses into
-    # its comparisons — which is what lets the full-size op compile on TPU
-    # (the top_k stack at 1024x128 is a 16.8M x 128 sort workload the
-    # backend refuses).  The sum pass feeds the adaptive-scale mean.
+    # Decision by COUNTING: est < q <=> #{refs >= q} < k, est > t <=>
+    # #{refs > t} >= k.  The (S, n_ref) rank stack is never materialized —
+    # each shifted view fuses into its comparisons.  The sum pass feeds the
+    # adaptive-scale mean.
     sum_refs = None
     for o in offs:
         v = view(o)
@@ -442,26 +564,13 @@ def _hw_stream_decide_xla(ext, start0, R, D, S, cfar, integer,
         mean = sum_refs // cfar.n_ref
         t_hi = mean + (mean >> 1)
         t_lo = mean >> 1
-
-        def qmin(s):
-            s = jnp.asarray(s, cut.dtype)
-            return (cut + s - 1) // jnp.maximum(s, 1)    # ceil(cut/scale)
     else:
         mean = sum_refs / cfar.n_ref
         t_hi = jnp.asarray(1.5 * mean, cut.dtype)
         t_lo = jnp.asarray(0.5 * mean, cut.dtype)
 
-        def qmin(s):
-            # smallest float whose product with scale reaches cut (exact
-            # q_min probing, ops/cfar_pallas._kernel_detect float pass C)
-            sf = jnp.asarray(s, jnp.float32)
-            bc = jax.lax.bitcast_convert_type
-            ti = bc(cut / sf, jnp.int32)
-            q = bc(ti + 1, jnp.float32)
-            for delta in (0, -1, -2):
-                c = bc(ti + delta, jnp.float32)
-                q = jnp.where(c * sf >= cut, c, q)
-            return q
+    def qmin(s):
+        return _count_threshold(cut, s, integer)
 
     q_lo = qmin(jnp.where(so != 0, so, cfar.scale_min))
     q_nom = qmin(jnp.where(so != 0, so, cfar.scale_nom))
@@ -477,10 +586,8 @@ def _hw_stream_decide_xla(ext, start0, R, D, S, cfar, integer,
         n_hi = n_hi + (v >= q_hi).astype(jnp.int32)
     hi = c_hi >= k
     lo = c_lo < k
-    scale = jnp.where(hi, cfar.scale_max,
-                      jnp.where(lo, cfar.scale_min, cfar.scale_nom))
-    scale = jnp.where(so != 0, so, scale).astype(ext.dtype)
-    cnt = jnp.where(hi, n_hi, jnp.where(lo, n_lo, n_nom))
+    scale = _scale_select(hi, lo, cfar, so).astype(ext.dtype)
+    cnt =jnp.where(hi, n_hi, jnp.where(lo, n_lo, n_nom))
     det = jnp.where((cnt < k) & (cut > 0), cut, jnp.zeros_like(cut))
     if need_debug:
         # est/threshold taps (dbg_threshold, os_cfar_2d.vhd:219): only here
@@ -493,41 +600,9 @@ def _hw_stream_decide_xla(ext, start0, R, D, S, cfar, integer,
     return det, threshold, scale
 
 
-def _hw_stream_decide_pallas(ext, start0, R, D, cfar, integer,
-                             scale_override):
-    """Kernel path for the hw-compat per-cell decision: bake the flat-stream
-    row carry into a fully-padded 2D buffer (padded column j < 0 of row r IS
-    column D+j of row r-1 and vice versa — three static reshaped slices of
-    the ext stream + one concat), swap the CfarParams axes to express the
-    crossed geometry, and run the counting detect kernel on VMEM-resident
-    planes (cfar_pallas._kernel_detect via prepadded_range="both").  The
-    gather set is identical to the flat-offset views by construction; the
-    decisions are bit-exact vs the XLA path in integer mode and
-    decision-equivalent in float (same mean-association caveat as
-    cfar_2d_auto's kernel dispatch)."""
-    import dataclasses
-    from .cfar_pallas import cfar_2d_pallas_detect
-    Hr, Hd = cfar.halo_doppler, cfar.halo_range   # rows x lanes, crossed
-    base = start0 - Hr * D
-    n = (R + 2 * Hr) * D
-    mid = ext[base:base + n].reshape(R + 2 * Hr, D)
-    up = ext[base - D:base - D + n].reshape(R + 2 * Hr, D)[:, D - Hd:]
-    down = ext[base + D:base + D + n].reshape(R + 2 * Hr, D)[:, :Hd]
-    padded = jnp.concatenate([up, mid, down], axis=1)
-    cfar_sw = dataclasses.replace(cfar, ref_range=cfar.ref_doppler,
-                                  ref_doppler=cfar.ref_range,
-                                  guard_range=cfar.guard_doppler,
-                                  guard_doppler=cfar.guard_range)
-    return cfar_2d_pallas_detect(
-        padded, scale_override, cfar=cfar_sw, integer=integer,
-        prepadded_range="both",
-        interpret=jax.default_backend() != "tpu", int_bits=17)
-
-
 @functools.partial(jax.jit,
                    static_argnames=("cfar", "integer", "streaming", "first",
-                                    "need_debug", "layout", "method",
-                                    "label_roll"))
+                                    "need_debug", "layout", "label_roll"))
 def cfar_2d_hw_stream(mag_map: jnp.ndarray,
                       scale_override: jnp.ndarray | int = 0,
                       cfar: CfarParams = CfarParams(),
@@ -537,7 +612,6 @@ def cfar_2d_hw_stream(mag_map: jnp.ndarray,
                       first: bool = False,
                       need_debug: bool = True,
                       layout: str = "flat",
-                      method: str = "auto",
                       label_roll: bool = True):
     """As-built streaming-CFAR geometry — the opt-in hw-compat mode.
 
@@ -574,20 +648,11 @@ def cfar_2d_hw_stream(mag_map: jnp.ndarray,
     IS the stream's first frame; the startup skip must suppress cells 0-2,
     whose training sets are mostly synthetic zeros).
 
-    ``method``: "xla" (the flat-stream view formulation below), "pallas"
-    (the counting detect kernel on a row-carry-baked padded buffer —
-    ~6x on hardware, no threshold taps), or "auto" (pallas on TPU when
-    need_debug is False, xla otherwise).  Integer-mode decisions are
-    bit-identical across methods; float mode is decision-equivalent (the
-    kernel's adaptive-scale mean uses the separable box tree — the same
-    contract as cfar_2d_auto's kernel dispatch).
-
     Integer maps narrower than 32 bits are upcast internally (cfar_2d
     note: the 128-view sum_refs and the ceil-division probe would wrap in
     int16); det_map and new_hist return in the input dtype (cut values
     fit), threshold/scale return int32 for narrow inputs — the same
-    contract as cfar_2d, and what keeps method='xla' bit-identical to the
-    kernel (which always counts in int32).
+    contract as cfar_2d.
     """
     if cfar.scale_mode != "cell":
         raise ValueError("hw-compat streaming CFAR is per-cell by definition")
@@ -613,40 +678,9 @@ def cfar_2d_hw_stream(mag_map: jnp.ndarray,
     start0 = 2 * lag + base
     pairs = _hw_stream_offsets(cfar)
 
-    if method == "auto":
-        # The counting kernel has no threshold taps, its row-carry padding
-        # assumes a single-row carry (lane halo < D) with both halos >= 1,
-        # and it takes the override as an SMEM int scalar (map-valued or
-        # float-typed overrides stay on the XLA body — cfar_3d's gate).
-        so_ok = (jnp.ndim(scale_override) == 0
-                 and jnp.issubdtype(jnp.asarray(scale_override).dtype,
-                                    jnp.integer))
-        method = ("pallas" if jax.default_backend() == "tpu"
-                  and not need_debug and cfar.halo_range < D and so_ok
-                  and min(cfar.halo_range, cfar.halo_doppler) >= 1
-                  else "xla")
-    if method == "pallas":
-        if need_debug:
-            raise ValueError("method='pallas' computes no threshold taps; "
-                             "pass need_debug=False or method='xla'")
-        if jnp.ndim(scale_override) != 0 or not jnp.issubdtype(
-                jnp.asarray(scale_override).dtype, jnp.integer):
-            raise ValueError(
-                "method='pallas' takes scale_override as a scalar integer "
-                "(SMEM); use method='xla' for map-valued or float overrides")
-        if min(cfar.halo_range, cfar.halo_doppler) < 1:
-            raise ValueError(
-                "method='pallas' needs both CFAR halos >= 1 (the row-carry "
-                "padding slices one halo per side); use method='xla'")
-        d2, s2 = _hw_stream_decide_pallas(ext, start0, R, D, cfar, integer,
-                                          jnp.asarray(scale_override))
-        det = d2.reshape(-1)
-        scale = s2.reshape(-1).astype(flat.dtype)
-        threshold = jnp.zeros_like(det)
-    else:
-        det, threshold, scale = _hw_stream_decide_xla(
-            ext, start0, R, D, S, cfar, integer, scale_override, need_debug,
-            pairs, layout)
+    det, threshold, scale = _hw_stream_decide(
+        ext, start0, R, D, S, cfar, integer, scale_override, need_debug,
+        pairs, layout)
     pos = jnp.arange(S) + base                          # stream positions
     if streaming:
         # steady state: every position emits.  ``first=True`` = the stream's
@@ -709,9 +743,7 @@ def cfar_1d(x: jnp.ndarray, ref_cells: int = 8, guard_cells: int = 2,
 
 def _offsets_3d(cfar: CfarParams, ref_angle: int, guard_angle: int):
     """Training offsets (da, dr, dd) of cfar_3d's box-minus-guard-box
-    neighborhood, in construction order.  SHARED with the angle-extended
-    counting kernel (cfar_pallas.cfar_3d_pallas_detect) — both gather
-    orders must stay identical for the pinned bit-parity."""
+    neighborhood, in construction order."""
     offs = []
     for da in range(-(ref_angle + guard_angle), ref_angle + guard_angle + 1):
         for d in range(cfar.win_doppler):
@@ -727,19 +759,20 @@ def _offsets_3d(cfar: CfarParams, ref_angle: int, guard_angle: int):
 def cfar_3d(cube: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
             cfar: CfarParams = CfarParams(), integer: bool = False,
             ref_angle: int = 0, guard_angle: int = 0, method: str = "auto",
-            prepadded_angle: bool = False, need_debug: bool = True,
-            int_bits: int = 17):
+            prepadded_angle: bool = False, need_debug: bool = True):
     """Angle-bin extension of the 2D CFAR (BASELINE config 4).
 
     ``cube``: (n_angle, n_range, n_doppler) magnitude maps, one per beam.
 
-    * ``ref_angle == 0``: independent 2D CFAR per angle bin (vmapped; uses the
-      Pallas kernel on TPU via the auto dispatcher).
+    * ``ref_angle == 0``: independent 2D CFAR per angle bin (vmapped
+      cfar_2d_auto; ``method`` and ``need_debug`` pick its route).
     * ``ref_angle > 0``: the training window extends +-ref_angle planes in
       angle (with +-guard_angle guard planes, wrap edges), forming a 3D
       box-minus-guard-box neighborhood; the order statistic / averages run
       over the enlarged training set.  The percentile rank follows
-      CfarParams.rank_pct on the enlarged n_ref.
+      CfarParams.rank_pct on the enlarged n_ref.  The decision is the
+      stacked top_k body below (``method`` "auto" or "topk"; no counting
+      route in 3D yet).
 
     ``prepadded_angle`` (ref_angle > 0 only): the cube already carries
     ``ref_angle + guard_angle`` halo planes on each side of axis 0 — the
@@ -748,14 +781,6 @@ def cfar_3d(cube: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
     applied here (range/Doppler still pad with ``cfar.edge_mode``).  The
     returned maps cover only the interior planes.
 
-    ``need_debug=False`` (ref_angle > 0): the threshold tap is unused —
-    on TPU the decision then auto-routes to the angle-extended counting
-    kernel (the only formulation that fits full-size cubes on-chip,
-    docs/PERF_LOG.md) and ``threshold`` comes back as None, mirroring
-    cfar_2d_auto's contract.  ``int_bits``: upper bound on integer map
-    values, forwarded to the kernel's exact-division gate (like
-    cfar_2d_auto; magnitudes in this framework are <= 17 bits).
-
     Returns (det_cube, threshold, scale) like cfar_2d.
     """
     if prepadded_angle and ref_angle == 0:
@@ -763,32 +788,11 @@ def cfar_3d(cube: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
     if ref_angle == 0:
         f = lambda m: cfar_2d_auto(m, scale_override, cfar=cfar,
                                    integer=integer, method=method,
-                                   need_debug=need_debug, int_bits=int_bits)
+                                   need_debug=need_debug)
         return jax.vmap(f)(cube)
-
-    if method == "auto":
-        # The kernel takes the override as an SMEM int scalar; map-valued
-        # or float-typed overrides stay on the XLA body.
-        so_ok = (jnp.ndim(scale_override) == 0
-                 and jnp.issubdtype(jnp.asarray(scale_override).dtype,
-                                    jnp.integer))
-        method = ("pallas" if cfar.variant == "os"
-                  and cfar.scale_mode == "cell" and not need_debug
-                  and so_ok and jax.default_backend() == "tpu" else "xla")
-    if method == "pallas":
-        if need_debug:
-            raise ValueError("method='pallas' computes no threshold taps; "
-                             "pass need_debug=False or method='xla'")
-        # Counting detect kernel on the flattened (angle, range)-row layout
-        # (cfar_pallas.cfar_3d_pallas_detect): integer decisions bit-exact
-        # vs the XLA body below, float decision-equivalent; threshold None.
-        from .cfar_pallas import cfar_3d_pallas_detect
-        det, scale = cfar_3d_pallas_detect(
-            cube, scale_override, cfar=cfar, integer=integer,
-            ref_angle=ref_angle, guard_angle=guard_angle,
-            prepadded_angle=prepadded_angle, int_bits=int_bits,
-            interpret=jax.default_backend() != "tpu")
-        return det, None, scale
+    if method not in ("auto", "topk"):
+        raise ValueError(f"cfar method {method!r} has no compiled route for "
+                         f"the angle-extended CFAR; choose 'auto' or 'topk'")
 
     offs3 = _offsets_3d(cfar, ref_angle, guard_angle)
     n_ref = len(offs3)
@@ -844,9 +848,7 @@ def cfar_3d(cube: jnp.ndarray, scale_override: jnp.ndarray | int = 0,
         mean = sum_refs / n_ref
         hi = est > 1.5 * mean
         lo = est < 0.5 * mean
-    scale = jnp.where(hi, cfar.scale_max, jnp.where(lo, cfar.scale_min,
-                                                    cfar.scale_nom))
-    scale = jnp.where(so != 0, so, scale).astype(cube.dtype)
+    scale = _scale_select(hi, lo, cfar, so).astype(cube.dtype)
     threshold = est * scale
     det = jnp.where(cube > threshold, cube, jnp.zeros_like(cube))
     return det.astype(in_dtype), threshold, scale
@@ -900,12 +902,12 @@ def peak_group_beams(det_cube: jnp.ndarray, radius: int = 1,
     B = m.shape[0]
     keep = m > 0
     if beam_ids is None:
-        # Contiguous-id fast path (the single-chip / fused model case):
+        # Contiguous-id fast path (the single-device model case):
         # neighbors are plain shifted views with zero-filled edges — the
         # zero fill IS the edge semantics (a missing neighbor never beats
         # m > 0), and beam order equals index order, so no id planes, no
-        # validity masks, no rolls.  ~3x fewer materialized map-sized
-        # intermediates than the general path (docs/PERF_LOG.md r4).
+        # validity masks, no rolls: fewer map-sized intermediates than the
+        # general path.
         z = jnp.zeros_like(m[:1])
         for o in range(1, radius + 1):
             up = jnp.concatenate([m[o:]] + [z] * o, axis=0)     # beam b+o

@@ -16,9 +16,7 @@ import jax.numpy as jnp
 
 
 @functools.partial(jax.jit, static_argnames=("max_dets",))
-def topk_detections(det_map: jnp.ndarray, max_dets: int = 64,
-                    row_max: jnp.ndarray | None = None,
-                    n_dets: jnp.ndarray | None = None):
+def topk_detections(det_map: jnp.ndarray, max_dets: int = 64):
     """Extract the ``max_dets`` strongest nonzero cells of a (R, D) detection
     map.  Returns dict with range_bin, doppler_bin (int32), mag (map dtype),
     valid (bool) — all length ``max_dets`` — and n_dets (total nonzero count,
@@ -36,17 +34,10 @@ def topk_detections(det_map: jnp.ndarray, max_dets: int = 64,
     least one consumed cell, so the tie-row slots never run out).
     Re-sorting the selected rows ascending makes the gathered layout
     (row, col)-lexicographic, so the final top_k's tie order matches the
-    flat one exactly.
-
-    ``row_max`` / ``n_dets``: optional precomputed per-row maxes (R,) and
-    nonzero count — the fused front-end kernel emits both as epilogues
-    (ops/frontend_pallas.rdm_frontend detect=True) so the extraction never
-    reads the full map beyond the ``max_dets`` gathered rows."""
+    flat one exactly."""
     R, D = det_map.shape
     if R * D > 16384 and R >= max_dets:
-        if row_max is None:
-            row_max = jnp.max(det_map, axis=1)
-        _, rows = jax.lax.top_k(row_max, max_dets)
+        _, rows = jax.lax.top_k(jnp.max(det_map, axis=1), max_dets)
         rows = jnp.sort(rows)                             # ascending row ids
         sub = jnp.take(det_map, rows, axis=0)             # (max_dets, D)
         vals, i2 = jax.lax.top_k(sub.ravel(), max_dets)
@@ -57,8 +48,7 @@ def topk_detections(det_map: jnp.ndarray, max_dets: int = 64,
         range_bin = (idx // D).astype(jnp.int32)
         doppler_bin = (idx % D).astype(jnp.int32)
     valid = vals > 0
-    if n_dets is None:
-        n_dets = jnp.sum(det_map > 0)
+    n_dets = jnp.sum(det_map > 0)
     return {
         "range_bin": range_bin,
         "doppler_bin": doppler_bin,
@@ -66,32 +56,3 @@ def topk_detections(det_map: jnp.ndarray, max_dets: int = 64,
         "valid": valid,
         "n_dets": n_dets.astype(jnp.int32),
     }
-
-
-@functools.partial(jax.jit, static_argnames=("max_dets", "n2d"))
-def topk_detections_sliced(det_slices: jnp.ndarray, max_dets: int = 64,
-                           row_max: jnp.ndarray | None = None,
-                           n_dets: jnp.ndarray | None = None,
-                           n2d: int = 1):
-    """topk_detections over the fused front-end's sliced detection layout
-    (ops/frontend_pallas.rdm_frontend(detect=True)): det_slices is
-    (n2*n2d, n1, n_doppler/n2d) with plane k2*n2d + pd holding true map
-    row n2*q + k2 at sublane q and Doppler bin n2d*q_d + pd at lane q_d
-    (``n2d > 1`` only for the long-CPI Doppler split; the default layout
-    has n2d == 1 and natural Doppler lanes).
-    Extracting on the sliced layout directly skips the (n_range, n_doppler)
-    de-interleave transpose; only the 64 extracted row indices are remapped.
-    Same detection set as topk on the de-interleaved map; entry order within
-    equal-magnitude ties follows the sliced row order instead of the map row
-    order (the set, not the order, is the reference's contract —
-    rtl/src/radar_core.vhd:413-418 emits stream order anyway)."""
-    n_planes, n1, D = det_slices.shape
-    n2 = n_planes // n2d
-    out = topk_detections(det_slices.reshape(n_planes * n1, D),
-                          max_dets=max_dets, row_max=row_max, n_dets=n_dets)
-    r = out["range_bin"]
-    plane = r // n1
-    out["range_bin"] = (r % n1) * n2 + plane // n2d
-    if n2d > 1:
-        out["doppler_bin"] = out["doppler_bin"] * n2d + plane % n2d
-    return out

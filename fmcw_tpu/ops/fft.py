@@ -1,14 +1,13 @@
-"""FFT kernels (JAX) — DFT-as-matmul on the MXU, plus XLA FFT fallback.
+"""FFT stages (JAX) — DFT-as-matmul GEMMs, plus the XLA FFT (cuFFT).
 
 The reference uses Xilinx XFFT streaming IP (rtl/src/radar_core.vhd:79-127).
-On TPU the radar's transform sizes (1024-pt range, 128-pt Doppler) are small
-enough that a dense DFT matmul runs on the MXU at full systolic-array
-utilization — batched over 128 chirps / 1024 range bins it is one
-(batch, N) @ (N, N) GEMM per axis, which XLA fuses with the window multiply
-and neighboring elementwise stages.  This beats generic FFT lowering for these
-shapes and, crucially, contracts over *either* axis without materializing a
-transpose (the single-chip corner turn folds into the Doppler matmul's
-dimension numbers).
+The radar's transform sizes (1024-pt range, 128-pt Doppler) are small enough
+that a dense DFT matmul is one (batch, N) @ (N, N) GEMM per axis, batched over
+128 chirps / 1024 range bins, with the window folded into the matrix — and,
+crucially, it contracts over *either* axis without materializing a transpose
+(the single-device corner turn folds into the Doppler matmul's dimension
+numbers).  Which formulation is fastest on the card ("matmul", "ct" or the
+XLA FFT) is measured, not assumed (ROADMAP A3).
 
 ``bfp_quantize`` applies the framework's block-floating-point semantics
 (golden/fixed_point.bfp_fft) to emulate the reference's int16 inter-stage
@@ -44,7 +43,7 @@ def dft_matrices(n: int, window: bool = False, coef_width: int = 16,
 def dft_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int, window: bool = False,
               precision=jax.lax.Precision.HIGHEST):
     """Forward DFT along ``axis`` of a complex array given as (re, im) float32
-    pair, as 4 real MXU matmuls: Xr = xr@Cr - xi@Ci; Xi = xr@Ci + xi@Cr."""
+    pair, as 4 real matmuls: Xr = xr@Cr - xi@Ci; Xi = xr@Ci + xi@Cr."""
     n = re.shape[axis]
     cr, ci = dft_matrices(n, window=window)
     cr, ci = jnp.asarray(cr), jnp.asarray(ci)
@@ -68,7 +67,7 @@ def dft_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int, window: bool = False,
 @functools.lru_cache(maxsize=16)
 def _ct_factors(n: int, dtype=np.float32):
     """Constants for the two-stage Cooley-Tukey split n = n1*n2 with n1 as
-    large as the MXU likes (<=128): (n1, n2, DFT_n1 matrices, DFT_n2
+    large as 128: (n1, n2, DFT_n1 matrices, DFT_n2
     matrices, twiddle (n1, n2) re/im)."""
     n1 = 128
     while n % n1:
@@ -86,10 +85,10 @@ def _ct_factors(n: int, dtype=np.float32):
 def ct_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int, window: bool = False,
              precision=jax.lax.Precision.HIGHEST):
     """Forward FFT along ``axis`` via the four-step Cooley-Tukey
-    factorization n = n1*n2 (n1 <= 128): a full-width DFT_n1 matmul (the MXU
-    does all the heavy lifting at 128-deep contraction), a twiddle
+    factorization n = n1*n2 (n1 <= 128): a full-width DFT_n1 matmul (the
+    heavy lifting, at 128-deep contraction), a twiddle
     elementwise multiply, a cheap DFT_n2 matmul, and an output reorder.  For
-    n = 1024 this is ~4x less MXU work than the dense DFT matmul
+    n = 1024 this is ~4x less matmul work than the dense DFT matmul
     (2*n*sqrt-ish vs n^2 MACs per transform) at the same f32 precision.
 
     Falls back to the dense matmul when n <= 128 (already one full-depth
@@ -127,7 +126,7 @@ def ct_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int, window: bool = False,
         ar, bi_, cr_, di = mm(xr, cr), mm(xr, ci), mm(xi, cr), mm(xi, ci)
         return ar - di, bi_ + cr_
 
-    # Step 1: DFT_n1 over the n1 axis (contraction depth n1 = full MXU).
+    # Step 1: DFT_n1 over the n1 axis (contraction depth n1).
     ar, ai = cmatmul(re, im, c1r, c1i, -2)
     # Step 2: twiddle W_n^(k1*m2).
     twr_, twi_ = jnp.asarray(twr), jnp.asarray(twi)
@@ -153,7 +152,7 @@ def doppler_matrices(n: int, notch_mode: int = 2, transient: str = "zero",
     (doppler_notch.vhd:72-94: y[s] = x[s] - x[s-1] or x[s] - 2x[s-1] +
     x[s-2]; missing history reads as 0 = the "passthrough" transient, and
     ``transient="zero"`` zeroes the first notch_mode-1 output rows instead —
-    docs/design_notes.md §2).  One MXU contraction then replaces three
+    docs/design_notes.md §2).  One matrix contraction then replaces three
     stages *and* the corner-turn transpose (contract the chirp axis of the
     chirp-major range-FFT output directly; the result axis lands last, i.e.
     range-major).  Returns (Mr_mti, Mi_mti, Mr_plain, Mi_plain); the plain
@@ -209,8 +208,8 @@ def doppler_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int, bypass,
 
 def fft_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int, window: bool = False,
               method: str = "matmul", precision=jax.lax.Precision.HIGHEST):
-    """Forward FFT along ``axis``; method "matmul" (dense MXU DFT), "ct"
-    (two-stage Cooley-Tukey matmul — less MXU work for n > 128), or "xla"
+    """Forward FFT along ``axis``; method "matmul" (dense DFT GEMM), "ct"
+    (two-stage Cooley-Tukey matmul — less matmul work for n > 128), or "xla"
     (jnp.fft.fft lowering).  The window, when requested, is folded into the
     matmul / applied as an elementwise multiply first."""
     if method == "matmul":
@@ -260,7 +259,7 @@ def scaled_fft_apply(re: jnp.ndarray, im: jnp.ndarray, axis: int,
     Inputs/outputs are int16-ranged integer values carried in int32 arrays
     (any integer or float dtype in; int32 out).  The 33-bit twiddle
     products are computed exactly in int32 by an 8-bit twiddle split —
-    no int64 anywhere, so the op runs unchanged on TPU.
+    no int64 anywhere, so the op runs unchanged on any backend.
     """
     ir = jnp.moveaxis(jnp.asarray(re), axis, -1).astype(jnp.int32)
     qr = jnp.moveaxis(jnp.asarray(im), axis, -1).astype(jnp.int32)

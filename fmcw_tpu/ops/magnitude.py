@@ -1,7 +1,7 @@
 """Complex magnitude (JAX) — alpha-max-beta-min approximation.
 
-TPU-native form of rtl/src/magnitude_calc.vhd: |Z| ~ max(|I|,|Q|) +
-0.375*min(|I|,|Q|) as whole-array VPU ops.  The fixed path uses the exact
+Array form of rtl/src/magnitude_calc.vhd: |Z| ~ max(|I|,|Q|) +
+0.375*min(|I|,|Q|) as whole-array elementwise ops.  The fixed path uses the exact
 truncating-shift formula (min/4 + min/8); the float path the same weights.
 """
 
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 def magnitude_float(re: jnp.ndarray, im: jnp.ndarray,
                     exact: bool = False) -> jnp.ndarray:
     """Float magnitude map.  ``exact=True`` uses sqrt(I^2+Q^2) (the framework
-    can afford it — one VPU op — but alpha-max-beta-min is the default for
+    can afford it — one elementwise op — but alpha-max-beta-min is the default for
     level-compatibility with the reference)."""
     if exact:
         return jnp.hypot(re, im)

@@ -1,6 +1,6 @@
 """MTI clutter notch (JAX) — slow-time pulse canceller.
 
-TPU-native reformulation of rtl/src/doppler_notch.vhd: the per-range-bin
+Array reformulation of rtl/src/doppler_notch.vhd: the per-range-bin
 delay-line FSM becomes a shifted-array difference along the chirp axis of the
 whole (range-major) frame.  Saturation applies in the fixed path only.
 """

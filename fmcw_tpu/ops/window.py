@@ -1,6 +1,6 @@
 """Window kernels (JAX) — Hamming window multiply.
 
-TPU-native reformulation of rtl/src/window_multiplier.vhd: instead of a
+Array reformulation of rtl/src/window_multiplier.vhd: instead of a
 per-sample coefficient-ROM pipeline, the window is a vector constant applied
 to a whole frame axis.  In the float pipeline the window is folded directly
 into the DFT matrix (zero-cost); the standalone ops here serve the fixed-point

@@ -7,12 +7,14 @@ Two parallel axes (SURVEY.md section 2d):
   out);
 * ``sp`` — sequence parallelism within a frame: chirps sharded for the range
   FFT, all-to-all corner turn, range bins sharded for the Doppler FFT and
-  CFAR (the TPU realization of the ping-pong BRAM corner turner,
+  CFAR (the mesh realization of the ping-pong BRAM corner turner,
   rtl/src/corner_turner.vhd:79-80).
 
 Multi-host: call ``jax.distributed.initialize()`` before ``make_mesh`` (the
 runtime does this when JAX_COORDINATOR_ADDRESS is set); the mesh then spans
-all hosts' devices and the all-to-all rides ICI within a slice / DCN across.
+all hosts' devices.  The mesh is a plain reshape of the device list: on
+the GPU every card reaches every other over NVLink at the same rate, so no
+topology is assumed.
 """
 
 from __future__ import annotations

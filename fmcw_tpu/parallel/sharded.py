@@ -1,4 +1,4 @@
-"""Multi-chip radar pipeline: shard_map over a ('dp', 'sp') mesh.
+"""Multi-device radar pipeline: shard_map over a ('dp', 'sp') mesh.
 
 The reference's single-chip dataflow maps onto the mesh as (SURVEY.md §2d):
 
@@ -6,14 +6,14 @@ The reference's single-chip dataflow maps onto the mesh as (SURVEY.md §2d):
 * within a frame, the **corner turn becomes an all-to-all**: chirps are
   sharded over ``sp`` for the range FFT, then ``lax.all_to_all`` redistributes
   so each chip holds a contiguous block of range bins for the MTI/Doppler/
-  magnitude stages (the TPU realization of the ping-pong BRAM transpose,
+  magnitude stages (the mesh realization of the ping-pong BRAM transpose,
   rtl/src/corner_turner.vhd:79-117 — the frame barrier of SURVEY.md CS-2);
 * the CFAR training window needs halo_range rows from both range-neighbors:
   a **ppermute ring halo exchange** supplies them (the torus edge semantics
   match the single-chip "wrap" CFAR bit-for-bit);
-* detections: each chip extracts its local top-K with globally-offset range
+* detections: each device extracts its local top-K with globally-offset range
   coordinates, then an all_gather + global top-K reproduces the single-chip
-  detection list on every chip.
+  detection list on every device.
 
 Outputs are replicated across the mesh (identical to the single-chip result;
 verified bit-exact in tests/test_sharded.py).
@@ -29,28 +29,9 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from ..params import RadarParams
+from ..routes import resolve_routes
 from ..ops import window as W, fft as F, notch as N, magnitude as M
 from ..ops import cfar as C, detect as DET
-
-
-def _halo_exchange_cols(m: jnp.ndarray, h: int, axis_name: str,
-                        edge_mode: str = "wrap"):
-    """Column (lane-axis) halo exchange: returns the ``h`` columns just
-    below / above this shard's block — the previous shard's last ``h``
-    columns and the next shard's first ``h`` (ring ppermute; with
-    edge_mode='reflect' the global edge shards mirror locally).  Unlike
-    _halo_exchange_rows this returns the halos separately (the split fused
-    kernel consumes them as distinct operands)."""
-    n = jax.lax.axis_size(axis_name)
-    fwd = [(i, (i + 1) % n) for i in range(n)]
-    bwd = [(i, (i - 1) % n) for i in range(n)]
-    lo = jax.lax.ppermute(m[:, -h:], axis_name, fwd)
-    hi = jax.lax.ppermute(m[:, :h], axis_name, bwd)
-    if edge_mode == "reflect":
-        idx = jax.lax.axis_index(axis_name)
-        lo = jnp.where(idx == 0, m[:, 1:h + 1][:, ::-1], lo)
-        hi = jnp.where(idx == n - 1, m[:, -h - 1:-1][:, ::-1], hi)
-    return lo, hi
 
 
 def _halo_exchange_rows(m: jnp.ndarray, h: int, axis_name: str,
@@ -75,45 +56,6 @@ def _halo_exchange_rows(m: jnp.ndarray, h: int, axis_name: str,
     return jnp.concatenate([top, m, bot], axis=0)
 
 
-def split_frontend_supported(p: RadarParams, sp: int) -> bool:
-    """Can the split fused front-end (ops/split_frontend.py kernels A + B)
-    run this shape on an ``sp``-sharded mesh?  Kernel A needs the
-    monolithic kernel's Cooley-Tukey range shape; kernel B needs the local
-    range extent in whole 128-lane slices and the long-CPI Doppler radix
-    within bounds."""
-    if p.n_range % sp:
-        return False
-    nrl = p.n_range // sp
-    return (nrl % 128 == 0 and nrl // 128 <= 16
-            and p.n_range % 128 == 0 and p.n_range // 128 <= 16
-            and (p.n_doppler <= 128
-                 or (p.n_doppler % 128 == 0 and p.n_doppler // 128 <= 16)))
-
-
-def split_detect_supported(p: RadarParams, mode: str, sp: int,
-                           peak_group_radius: int = 0,
-                           cfar_method: str = "auto") -> bool:
-    """Can the CFAR decision (+ grouping) additionally run inside kernel B
-    (the fully-fused sp>1 path)?  Mirrors the monolithic kernel's per-cell
-    gate: cell-scale wrap-edge os/ca/go/so, the exchanged complex halo
-    (halo_range + peak_group_radius columns) bounded, and — for
-    mode='fixed' — the f32-exact integer window-sum bound of
-    pipeline.fused_fixed_detect_supported.  Block-scale configs run kernel
-    B magnitude-only + ops/cfar.block_scale_map_sharded + the standalone
-    Pallas detect kernel instead."""
-    h = p.cfar.halo_range + peak_group_radius
-    ok = (split_frontend_supported(p, sp)
-          and p.cfar.scale_mode == "cell"
-          and p.cfar.edge_mode == "wrap"
-          and p.cfar.variant in ("os", "ca", "go", "so")
-          and cfar_method in ("auto", "pallas")
-          and h <= 32)
-    if mode == "fixed":
-        # Cell scale carries the training-window mean as integers in f32.
-        ok = ok and p.cfar.win_range * p.cfar.win_doppler * 45056 < 2 ** 24
-    return ok
-
-
 def make_sharded_processor(mesh: jax.sharding.Mesh,
                            params: RadarParams | None = None,
                            mode: str = "float32",
@@ -124,32 +66,18 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
                            peak_group_radius: int = 0,
                            magnitude_exact: bool = False,
                            cfar_method: str = "auto",
-                           cfar_rank_bits: int | None = 16,
                            include_maps: bool = False,
-                           include_debug: bool = False,
-                           frontend: str = "auto"):
+                           include_debug: bool = False):
     """Build the sharded frame-batch processor.
 
     Returned callable: ``fn(iq, mti_bypass=False, scale_override=0) -> dict``
     with iq int16[(batch, n_doppler, n_range, 2)], batch divisible by the dp
     axis, n_doppler and n_range divisible by the sp axis.  Detection outputs
     are replicated; map outputs (include_maps) come back range-sharded over sp
-    and batch-sharded over dp.
-
-    ``frontend="auto"``: when the mesh is pure frame-DP (sp == 1, so each
-    chip holds whole frames) and the single-chip fused-detect conditions
-    hold, each shard runs the fused Pallas front-end+detect kernel
-    (ops/frontend_pallas.py) instead of the XLA stage chain — the
-    max-throughput multi-chip configuration (per-chip speed matches the
-    single-chip fused bench; dp scales it).  ``frontend="xla"`` forces the
-    stage chain on every mesh shape.
-
-    Parity note: detection-set parity vs the single chip is exact when both
-    sides run the same front-end (the invariant the tests pin).  The fused
-    kernel's bf16x3 numerics differ from the XLA chain's in float ulps, so
-    comparing a fused single chip against an sp-sharded XLA mesh is
-    SNR-bound, not bit-exact; use matching ``frontend=`` (or mode="fixed",
-    which is bit-identical everywhere) for exact cross-checks.
+    and batch-sharded over dp.  Routes resolve as on the single device
+    (``routes.resolve_routes`` with ``sp``; ``process.routes``), so the
+    detection set equals the single-device processor's: exactly in fixed
+    mode, and in float mode up to the matmul summation order.
     """
     p = params or RadarParams()
     dp = mesh.shape["dp"]
@@ -176,80 +104,19 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
             f"scale_mode='block' needs the local range extent "
             f"({nr_local} = n_range/sp) divisible by "
             f"scale_block={p.cfar.scale_block}")
-
-    from ..models import pipeline as PL
-    explicit_pallas = frontend == "pallas"
-    if frontend == "auto":
-        # Same resolution as models/pipeline.py: the fused Pallas kernel on
-        # real TPUs, and only when no non-default FFT formulation was
-        # requested (the fused kernel has its own in-VMEM Cooley-Tukey and
-        # bf16x3 numerics — fft_method/precision would silently stop
-        # binding); the XLA chain elsewhere (interpret mode is for tests).
-        frontend = ("pallas" if (jax.default_backend() == "tpu"
-                                 and fft_method == "matmul")
-                    else "xla")
-    # mode='fixed' follows the single-chip rule (models/pipeline.py): the
-    # fused fixed kernel is explicit opt-in only — auto keeps the XLA chain
-    # so fixed mode stays bit-identical across mesh shapes.
-    use_fused = (frontend == "pallas" and sp == 1
-                 and (PL.fused_detect_supported(p, mode, peak_group_radius,
-                                                cfar_method, include_debug)
-                      or (explicit_pallas and mode == "fixed"
-                          and PL.fused_fixed_detect_supported(
-                              p, peak_group_radius, cfar_method,
-                              include_debug))))
-    # sp > 1: the SPLIT fused path (ops/split_frontend.py) — kernel A
-    # (window + CT range FFT) on the chirp shard, all-to-all, kernel B
-    # (slow-time + magnitude [+ CFAR decision + grouping]) on the range
-    # shard.  Bit-exact against the monolithic fused kernel at any sp, so
-    # the sequence-parallel mesh runs at kernel speed instead of the XLA
-    # stage chain.  Float auto-resolves like the single chip; fixed stays
-    # explicit opt-in (bit-identical-by-default invariant).
-    use_split = use_split_detect = False
-    if frontend == "pallas" and sp > 1:
-        if mode == "float32" and split_frontend_supported(p, sp):
-            use_split = True
-            # Debug taps come from the standalone CFAR formulation: keep
-            # the split FRONT-END but run the decision on the sharded tail
-            # (threshold/scale maps halo-correct, os_cfar_2d.vhd:34-35).
-            use_split_detect = (not include_debug
-                                and split_detect_supported(
-                                    p, mode, sp, peak_group_radius,
-                                    cfar_method))
-        elif (mode == "fixed" and explicit_pallas
-              and split_detect_supported(p, mode, sp, peak_group_radius,
-                                         cfar_method)):
-            use_split = True
-            use_split_detect = not include_debug
-    if explicit_pallas and not (use_fused or use_split):
-        raise ValueError(
-            "frontend='pallas' needs mode in ('float32', 'fixed') and "
-            "either a pure frame-DP mesh (sp == 1) with fused-detect-"
-            "compatible CfarParams, or an sp-sharded mesh whose local "
-            "range extent n_range/sp is a multiple of 128 (<= 16 slices; "
-            "mode='fixed' additionally needs the cell-scale wrap-edge "
-            "split-detect geometry, parallel.sharded.split_detect_supported)")
+    routes = resolve_routes(p, mode=mode, fft_method=fft_method,
+                            cfar_method=cfar_method,
+                            include_debug=include_debug,
+                            magnitude_exact=magnitude_exact, sp=sp)
 
     def frame_fn(iq, mti_bypass, scale_override):
         """Per-(dp-shard, sp-shard) single-frame body.  iq local shape:
         (n_doppler/sp, n_range, 2)."""
-        if use_fused:
-            # Pure frame-DP (sp == 1: whole frames per chip): the same
-            # fully-fused kernel step as the single-chip production path —
-            # per-chip throughput matches the single-chip fused bench and
-            # dp scales it.
-            return PL.fused_detect_frame(
-                p, iq, mti_bypass, scale_override, max_dets=max_dets,
-                mti_transient=mti_transient,
-                magnitude_exact=magnitude_exact,
-                include_maps=include_maps,
-                peak_group_radius=peak_group_radius,
-                mode=mode, window_rounding=window_rounding)
         sp_idx = jax.lax.axis_index("sp")
 
         def finish(local, local_r, sat, nonfinite, maps):
-            """Shared tail: gather the shards' local top-K detections and
-            re-extract the global top-K on every chip."""
+            """Gather the shards' local top-K detections and re-extract the
+            global top-K on every device."""
             all_mag = jax.lax.all_gather(local["mag"], "sp", tiled=True)
             all_r = jax.lax.all_gather(local_r, "sp", tiled=True)
             all_d = jax.lax.all_gather(local["doppler_bin"], "sp",
@@ -267,88 +134,12 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
             out.update(maps)
             return out
 
-        if use_split:
-            from ..ops import split_frontend as SF
-            interp = jax.default_backend() != "tpu"
-            if mode == "fixed":
-                sre, sim, sat_r = SF.range_frontend(
-                    iq, fixed=True, coef_width=p.coef_width,
-                    window_rounding=window_rounding, interpret=interp)
-            else:
-                sre, sim = SF.range_frontend(iq, interpret=interp)
-                sat_r = jnp.int32(0)
-            # The corner turn (rtl/src/corner_turner.vhd:79-117): chirp
-            # shards -> range shards, natural orders on both sides.
-            sre, sim = [jax.lax.all_to_all(x, "sp", split_axis=1,
-                                           concat_axis=0, tiled=True)
-                        for x in (sre, sim)]
-            if use_split_detect:
-                h = hr + peak_group_radius
-                lo_re, hi_re = _halo_exchange_cols(sre, h, "sp",
-                                                   p.cfar.edge_mode)
-                lo_im, hi_im = _halo_exchange_cols(sim, h, "sp",
-                                                   p.cfar.edge_mode)
-                det_s, magm, stat, rmax, ndets = SF.slowtime_detect(
-                    sre, sim, (lo_re, lo_im), (hi_re, hi_im),
-                    mti_bypass, scale_override, sp_idx * nr_local,
-                    cfar=p.cfar, detect=True, emit_mag=include_maps,
-                    peak_group_radius=peak_group_radius,
-                    exact_mag=magnitude_exact, fixed=(mode == "fixed"),
-                    notch_mode=p.notch_mode, transient=mti_transient,
-                    coef_width=p.coef_width,
-                    window_rounding=window_rounding,
-                    n_range_total=p.n_range, interpret=interp)
-                n2l = nr_local // 128
-                n2d = det_s.shape[0] // n2l
-                ndl = p.n_doppler // n2d
-                local = DET.topk_detections(
-                    det_s.reshape(n2l * n2d * 128, ndl),
-                    max_dets=max_dets, row_max=rmax, n_dets=ndets)
-                local = SF.split_topk_remap(local, n2l, n2d)
-                if mode == "fixed":
-                    local["mag"] = local["mag"].astype(jnp.int32)
-                    sat = jax.lax.psum(sat_r + stat, "sp")
-                    nonfinite = jnp.int32(0)
-                else:
-                    sat = jnp.int32(0)
-                    nonfinite = jax.lax.psum(stat, "sp")
-                maps = {}
-                if include_maps:
-                    dmap = jnp.transpose(
-                        det_s.reshape(n2l, n2d, 128, ndl),
-                        (0, 2, 3, 1)).reshape(nr_local, p.n_doppler)
-                    if mode == "fixed":
-                        maps["mag_map"] = magm.astype(jnp.int32)
-                        maps["det_map"] = dmap.astype(jnp.int32)
-                    else:
-                        maps["mag_map"] = magm
-                        maps["det_map"] = dmap
-                return finish(local, local["range_bin"]
-                              + sp_idx * nr_local, sat, nonfinite, maps)
-            # Magnitude-only kernel B (block-scale or non-cell configs):
-            # the decision runs below on the standard sharded tail
-            # (block-grid scale exchange + row halo + standalone kernel).
-            magm, stat = SF.slowtime_detect(
-                sre, sim, mti_bypass=mti_bypass,
-                scale_override=scale_override, cfar=None, detect=False,
-                exact_mag=magnitude_exact, fixed=(mode == "fixed"),
-                notch_mode=p.notch_mode, transient=mti_transient,
-                coef_width=p.coef_width,
-                window_rounding=window_rounding, interpret=interp)
-            if mode == "fixed":
-                mag = magm.astype(jnp.int32)
-                sat = jax.lax.psum(sat_r + stat, "sp")
-                nonfinite = jnp.int32(0)
-            else:
-                mag = magm
-                sat = jnp.int32(0)
-                nonfinite = jax.lax.psum(stat, "sp")
-        elif mode == "float32":
+        if routes.slow_time == "folded":
             re = iq[..., 0].astype(jnp.float32)
             im = iq[..., 1].astype(jnp.float32)
             # Range window+FFT on the local chirp block (full range axis).
             re, im = F.fft_apply(re, im, axis=1, window=True,
-                                 method=fft_method, precision=precision)
+                                 method=routes.range_fft, precision=precision)
             # Corner turn: all-to-all splits the range axis over sp and
             # gathers all chirps -> (nd, nr_local) chirp-major shard; the
             # fused Doppler operator (window+MTI+DFT, ops/fft.py) contracts
@@ -360,11 +151,12 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
                                      notch_mode=p.notch_mode,
                                      transient=mti_transient,
                                      precision=precision)
-            mag = M.magnitude_float(re, im, exact=magnitude_exact)
+            mag = M.magnitude_float(re, im,
+                                    exact=routes.magnitude == "exact")
             sat = jnp.int32(0)
             nonfinite = jax.lax.psum(
                 jnp.sum(~jnp.isfinite(mag)).astype(jnp.int32), "sp")
-        elif mode == "fixed":
+        else:
             i_v = iq[..., 0].astype(jnp.int32)
             q_v = iq[..., 1].astype(jnp.int32)
             cr = W.hamming_q15(p.n_range, p.coef_width)
@@ -372,7 +164,7 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
                                                 p.coef_width, window_rounding)
             re, im = F.fft_apply(i_v.astype(jnp.float32),
                                  q_v.astype(jnp.float32), axis=1,
-                                 method=fft_method, precision=precision)
+                                 method=routes.range_fft, precision=precision)
             re, im = F.bfp_quantize(re, im, axis=1)
             re, im = [jax.lax.all_to_all(x, "sp", split_axis=1, concat_axis=0,
                                          tiled=True).T for x in (re, im)]
@@ -385,13 +177,11 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
                                                 p.coef_width, window_rounding)
             re, im = F.fft_apply(i_v.astype(jnp.float32),
                                  q_v.astype(jnp.float32), axis=1,
-                                 method=fft_method, precision=precision)
+                                 method=routes.range_fft, precision=precision)
             re, im = F.bfp_quantize(re, im, axis=1)
             mag = M.magnitude_fixed(re.astype(jnp.int32), im.astype(jnp.int32))
             sat = jax.lax.psum(s1 + s2, "sp").astype(jnp.int32)
             nonfinite = jnp.int32(0)
-        else:
-            raise ValueError(mode)
 
         # CFAR with cross-shard halo (ring exchange along sp; reflect edges
         # mirror locally on the edge shards).  Block-mode adaptive scale
@@ -403,12 +193,12 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
             scale_map = C.block_scale_map_sharded(
                 mag, p.cfar, integer=(mode == "fixed"), axis_name="sp")
         mag_h = _halo_exchange_rows(mag, hr, "sp", p.cfar.edge_mode)
-        det, threshold, dbg_scale = C.cfar_2d_auto(
-            mag_h, scale_override, cfar=p.cfar,
-            integer=(mode == "fixed"), prepadded_range=True,
-            method=cfar_method, int_bits=16,
-            rank_bits=(None if mode == "fixed" else cfar_rank_bits),
-            need_debug=include_debug, scale_map=scale_map)
+        with jax.named_scope("cfar"):
+            det, threshold, dbg_scale = C.cfar_2d_auto(
+                mag_h, scale_override, cfar=p.cfar,
+                integer=(mode == "fixed"), prepadded_range=True,
+                method=routes.cfar, need_debug=include_debug,
+                scale_map=scale_map)
         if peak_group_radius > 0:
             # Peak grouping also needs neighbor context; reuse the exchange.
             # Global row ids keep tie-breaking identical to single chip even
@@ -460,12 +250,12 @@ def make_sharded_processor(mesh: jax.sharding.Mesh,
     ))
 
     return _make_process_wrapper(sharded, mesh, P("dp", "sp", None, None),
-                                 (p.n_doppler, p.n_range, 2), dp,
+                                 (p.n_doppler, p.n_range, 2), dp, routes,
                                  what="iq batch")
 
 
 def _make_process_wrapper(sharded, mesh, in_spec, expected_tail, dp,
-                          what="iq batch"):
+                          routes, what="iq batch"):
     """Shared host-side entry for the sharded processors (single place for
     the multi-host input contract, so the frame and array models cannot
     drift): strict shape checks, traced runtime controls, replicated-numpy
@@ -503,6 +293,7 @@ def _make_process_wrapper(sharded, mesh, in_spec, expected_tail, dp,
                        _ctrl(scale_override, np.int32))
 
     process.jitted = sharded
+    process.routes = routes
     return process
 
 
@@ -519,40 +310,29 @@ def make_sharded_array_processor(mesh: jax.sharding.Mesh,
                                  taper: str | None = None,
                                  cfar_method: str = "auto",
                                  include_maps: bool = False,
-                                 frontend: str = "auto",
                                  peak_group_radius: int = 0,
                                  beam_group_radius: int = 0):
-    """Multi-chip array-radar model: batch over ``dp``, BEAMS over ``sp``.
+    """Multi-device array-radar model: batch over ``dp``, BEAMS over ``sp``.
 
     Sharding design (the angle-axis analog of make_sharded_processor's
     range sharding): the element-space cube is replicated over sp — every
-    beam needs every element — and each chip forms its ``n_beams/sp`` beam
-    block and runs the per-beam front-end + CFAR on it.  The steering
-    matmul runs in full on every chip (it is ~1e-4 of the front-end FLOPs)
-    and the local block is sliced out, so the local beams' float ops are
-    IDENTICAL to the single-chip model's.  ``ref_angle > 0`` training sets
-    span neighbor beams: a ppermute ring halo exchange supplies the
+    beam needs every element — and each device forms its ``n_beams/sp``
+    beam block and runs the per-beam front-end + CFAR on it.  The steering
+    matmul runs in full on every device (it is ~1e-4 of the front-end
+    FLOPs) and the local block is sliced out, so the local beams' float ops
+    are IDENTICAL to the single-device model's.  ``ref_angle > 0`` training
+    sets span neighbor beams: a ppermute ring halo exchange supplies the
     ``ref_angle + guard_angle`` neighbor beam planes
-    (ops/cfar.cfar_3d ``prepadded_angle``), matching the single-chip wrap
+    (ops/cfar.cfar_3d ``prepadded_angle``), matching the single-device wrap
     (or reflect) angle-edge semantics bit-for-bit.  Detections come back
     replicated: local top-K with global beam ids -> all_gather -> global
-    top-K, same detection set as single-chip pipeline.make_array_processor
-    when both run the same front-end.
-
-    ``frontend`` follows make_array_processor: "auto" resolves to the
-    fully-fused per-beam Pallas front-end+detect kernel on TPU when
-    ``ref_angle == 0`` and fused_detect_supported holds (per-chip speed
-    matches tools/array_bench.py's fused figures; dp and the beam shards
-    scale it); the vmapped XLA chain + cfar_3d otherwise (for
-    ``ref_angle > 0`` cfar_3d's decision auto-resolves to the
-    angle-extended counting kernel on TPU, fed by this model's beam-halo
-    exchange via ``prepadded_angle``).
+    top-K, same detection set as pipeline.make_array_processor.
 
     Peak grouping follows pipeline.make_array_processor:
     ``peak_group_radius`` per beam (shard-local), ``beam_group_radius``
     across beams — the cross-shard case ring-exchanges the neighbor beam
     planes and passes true global beam ids so the non-periodic beam-edge
-    semantics match the single chip exactly.
+    semantics match the single device exactly.
 
     Returned callable: ``fn(iq, mti_bypass=False, scale_override=0)`` with
     iq int16[(batch, n_elems, n_doppler, n_range, 2)], batch divisible by
@@ -583,11 +363,12 @@ def make_sharded_array_processor(mesh: jax.sharding.Mesh,
             f"beam_group_radius ({beam_group_radius}) must not exceed the "
             f"local beam extent (n_beams/sp = {bl})")
     max_dets = p.tracker.max_dets
-    # One resolution gate shared with the single-chip array model
-    # (pipeline.resolve_array_frontend): a mesh must never auto-resolve to
-    # a different front-end than the single chip it is parity-tested against.
-    frontend, use_fused, use_fused_frontend = PL.resolve_array_frontend(
-        p, frontend, ref_angle, peak_group_radius, cfar_method, fft_method)
+    # The same resolution as the single-device array model it is
+    # parity-tested against.
+    routes = resolve_routes(p, fft_method=fft_method,
+                            cfar_method=cfar_method,
+                            magnitude_exact=magnitude_exact,
+                            ref_angle=ref_angle)
 
     def frame_fn(iq, mti_bypass, scale_override):
         """Per-(dp, sp) shard single-cube body.  iq local shape:
@@ -600,151 +381,42 @@ def make_sharded_array_processor(mesh: jax.sharding.Mesh,
                              precision=precision)
         br = jax.lax.dynamic_slice_in_dim(br, sp_idx * bl, bl, axis=0)
         bi = jax.lax.dynamic_slice_in_dim(bi, sp_idx * bl, bl, axis=0)
-
-        def _beam_group(det):
-            """Cross-beam grouping on a (bl, nr, nd) local cube: ring-halo
-            the neighbor shards' planes; true global beam ids make the
-            non-periodic edge semantics exact (ops/cfar.peak_group_beams)."""
-            if sp == 1:
-                return C.peak_group_beams(det, radius=beam_group_radius)
-            ext = _halo_exchange_rows(det, beam_group_radius, "sp")
-            gids = (sp_idx * bl
-                    + jnp.arange(-beam_group_radius,
-                                 bl + beam_group_radius)) % n_beams
-            ext = C.peak_group_beams(ext, radius=beam_group_radius,
-                                     beam_ids=gids)
-            return ext[beam_group_radius:-beam_group_radius]
-
-        maps = {}
-        if use_fused:
-            from ..ops.frontend_pallas import rdm_frontend
-            biq = jnp.stack([br, bi], axis=-1)        # (bl, nd, nr, 2) f32
-            det_s, mag_s, nf, rmax, ndets = jax.vmap(
-                lambda x: rdm_frontend(
-                    x, mti_bypass, notch_mode=p.notch_mode,
-                    transient=mti_transient, exact_mag=magnitude_exact,
-                    interpret=jax.default_backend() != "tpu", cfar=p.cfar,
-                    detect=True, scale_override=scale_override,
-                    peak_group_radius=peak_group_radius,
-                    emit_mag=include_maps))(biq)
-            n2 = max(p.n_range // 128, 1)
-            n1 = min(p.n_range, 128)
-            n2d = det_s.shape[1] // n2    # long-CPI Doppler parity planes
-            ndl = p.n_doppler // n2d
-            sl = n2 * n2d * n1            # sliced rows per beam
-            nonfinite = jnp.sum(nf).astype(jnp.int32)
-
-            def _remap(local):
-                row = local["range_bin"]
-                b = row // sl + sp_idx * bl
-                r = row % sl
-                plane = r // n1
-                rb = (r % n1) * n2 + plane // n2d      # de-interleave
-                if n2d > 1:
-                    local["doppler_bin"] = (local["doppler_bin"] * n2d
-                                            + plane % n2d)
-                return b, rb
-
-            def _cube(planes):
-                return jnp.transpose(
-                    planes.reshape(bl, n2, n2d, n1, ndl),
-                    (0, 3, 1, 4, 2)).reshape(bl, p.n_range, p.n_doppler)
-
-            if beam_group_radius > 0:
-                # Cross-beam grouping compares the same cell across beams;
-                # the sliced layout is a shared permutation, so grouping
-                # (and the halo ring inside _beam_group) runs on the det
-                # slices directly — no de-interleave.  Row maxes are
-                # recomputed post-group so extraction keeps the row-select
-                # reduction (pipeline.make_array_processor, PERF_LOG r4).
-                if sp == 1:
-                    # All beams local: the one-pass grouping kernel emits
-                    # the grouped planes + post-group row maxes + counts,
-                    # same as the single-chip array model — XLA reads back
-                    # only the winning rows instead of re-reducing the full
-                    # det cube (cfar_pallas.peak_group_beams_pallas,
-                    # bit-identical to peak_group_beams).
-                    from ..ops.cfar_pallas import peak_group_beams_pallas
-                    det_g, rmax2, nd2 = peak_group_beams_pallas(
-                        det_s.reshape(bl, sl, ndl),
-                        radius=beam_group_radius,
-                        interpret=jax.default_backend() != "tpu")
-                    flat = det_g.reshape(bl * sl, ndl)
-                    local = DET.topk_detections(
-                        flat, max_dets=max_dets, row_max=rmax2, n_dets=nd2)
-                else:
-                    det_g = _beam_group(det_s.reshape(bl, sl, ndl))
-                    flat = det_g.reshape(bl * sl, ndl)
-                    local = DET.topk_detections(
-                        flat, max_dets=max_dets,
-                        row_max=jnp.max(flat, axis=1))
-                local_b, local_r = _remap(local)
-                if include_maps:
-                    maps["mag_cube"] = mag_s
-                    maps["det_cube"] = _cube(det_g)
-            else:
-                flat = det_s.reshape(bl * sl, ndl)
-                local = DET.topk_detections(flat, max_dets=max_dets,
-                                            row_max=rmax.reshape(-1),
-                                            n_dets=jnp.sum(ndets))
-                local_b, local_r = _remap(local)
-                if include_maps:
-                    maps["mag_cube"] = mag_s
-                    maps["det_cube"] = _cube(det_s)
+        cube = jax.vmap(lambda r, i: PL.float_beam_frontend(
+            r, i, mti_bypass, p, routes, precision, mti_transient))(br, bi)                  # (bl, nr, nd)
+        nonfinite = jnp.sum(~jnp.isfinite(cube)).astype(jnp.int32)
+        cfar_kw = dict(cfar=p.cfar, integer=False, ref_angle=ref_angle,
+                       guard_angle=guard_angle, need_debug=False,
+                       method=routes.cfar if ref_angle == 0 else "auto")
+        if ref_angle > 0 and sp > 1:
+            # Cross-beam training set: ring-exchange the neighbor shards'
+            # ha beam planes (wrap == the single-device pad; reflect
+            # mirrors locally on the edge shards).
+            cube_h = _halo_exchange_rows(cube, ha, "sp", p.cfar.edge_mode)
+            det, _, _ = C.cfar_3d(cube_h, scale_override,
+                                  prepadded_angle=True, **cfar_kw)
         else:
-            if use_fused_frontend:
-                # ref_angle > 0: fused Pallas front-end per local beam, the
-                # 3D decision (with the beam-plane halo) below.
-                from ..ops.frontend_pallas import rdm_frontend
-                biq = jnp.stack([br, bi], axis=-1)     # (bl, nd, nr, 2) f32
-                cube = jax.vmap(
-                    lambda x: rdm_frontend(
-                        x, mti_bypass, notch_mode=p.notch_mode,
-                        transient=mti_transient, exact_mag=magnitude_exact,
-                        interpret=jax.default_backend() != "tpu"))(biq)
+            det, _, _ = C.cfar_3d(cube, scale_override, **cfar_kw)
+        if peak_group_radius > 0:
+            det = jax.vmap(
+                lambda d: C.peak_group(d, radius=peak_group_radius))(det)
+        if beam_group_radius > 0:
+            if sp == 1:
+                det = C.peak_group_beams(det, radius=beam_group_radius)
             else:
-                def beam_frontend(re1, im1):
-                    re2, im2 = F.fft_apply(re1, im1, axis=1, window=True,
-                                           method=fft_method,
-                                           precision=precision)
-                    re3, im3 = F.doppler_apply(re2, im2, axis=0,
-                                               bypass=mti_bypass,
-                                               notch_mode=p.notch_mode,
-                                               transient=mti_transient,
-                                               precision=precision)
-                    return M.magnitude_float(re3, im3, exact=magnitude_exact)
-
-                cube = jax.vmap(beam_frontend)(br, bi)     # (bl, nr, nd)
-            nonfinite = jnp.sum(~jnp.isfinite(cube)).astype(jnp.int32)
-            if ref_angle > 0 and sp > 1:
-                # Cross-beam training set: ring-exchange the neighbor
-                # shards' ha beam planes (wrap == the single-chip pad;
-                # reflect mirrors locally on the edge shards).
-                cube_h = _halo_exchange_rows(cube, ha, "sp", p.cfar.edge_mode)
-                det, _, _ = C.cfar_3d(cube_h, scale_override, cfar=p.cfar,
-                                      integer=False, ref_angle=ref_angle,
-                                      guard_angle=guard_angle,
-                                      method=cfar_method,
-                                      prepadded_angle=True,
-                                      need_debug=False)
-            else:
-                det, _, _ = C.cfar_3d(cube, scale_override, cfar=p.cfar,
-                                      integer=False, ref_angle=ref_angle,
-                                      guard_angle=guard_angle,
-                                      method=cfar_method,
-                                      need_debug=False)
-            if peak_group_radius > 0:
-                det = jax.vmap(
-                    lambda d: C.peak_group(d, radius=peak_group_radius))(det)
-            if beam_group_radius > 0:
-                det = _beam_group(det)
-            flat = det.reshape(bl * p.n_range, p.n_doppler)
-            local = DET.topk_detections(flat, max_dets=max_dets)
-            local_b = local["range_bin"] // p.n_range + sp_idx * bl
-            local_r = local["range_bin"] % p.n_range
-            if include_maps:
-                maps["mag_cube"] = cube
-                maps["det_cube"] = det
+                # Ring-halo the neighbor shards' planes; true global beam
+                # ids make the non-periodic edge semantics exact.
+                ext = _halo_exchange_rows(det, beam_group_radius, "sp")
+                gids = (sp_idx * bl
+                        + jnp.arange(-beam_group_radius,
+                                     bl + beam_group_radius)) % n_beams
+                ext = C.peak_group_beams(ext, radius=beam_group_radius,
+                                         beam_ids=gids)
+                det = ext[beam_group_radius:-beam_group_radius]
+        flat = det.reshape(bl * p.n_range, p.n_doppler)
+        local = DET.topk_detections(flat, max_dets=max_dets)
+        local_b = local["range_bin"] // p.n_range + sp_idx * bl
+        local_r = local["range_bin"] % p.n_range
+        maps = {"mag_cube": cube, "det_cube": det} if include_maps else {}
 
         all_mag = jax.lax.all_gather(local["mag"], "sp", tiled=True)
         all_b = jax.lax.all_gather(local_b, "sp", tiled=True)
@@ -788,4 +460,4 @@ def make_sharded_array_processor(mesh: jax.sharding.Mesh,
     return _make_process_wrapper(sharded, mesh,
                                  P("dp", None, None, None, None),
                                  (n_elems, p.n_doppler, p.n_range, 2), dp,
-                                 what="element-space iq batch")
+                                 routes, what="element-space iq batch")

@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the TPU-native FMCW radar framework.
+"""Configuration dataclasses for the FMCW radar framework.
 
 These are the software equivalents of the reference design's VHDL generics and
 testbench constants:
@@ -152,14 +152,11 @@ def quick() -> RadarParams:
 
 def fast() -> RadarParams:
     """Full-resolution throughput configuration: clutter-map (block) CFAR
-    scale (docs/design_notes.md §8).  Pair with the fused Pallas front-end
-    for the measured-fastest single-chip pipeline:
+    scale (docs/design_notes.md §8).  The adaptive scale is classified per
+    8x8 block instead of per cell; the OS threshold decision itself stays
+    exact per cell:
 
-        proc = pipeline.make_processor(fmcw_tpu.fast(), mode="float32",
-                                       frontend="pallas",
-                                       include_maps=False)
-
-    (bench.py's headline config; ~28.7k frames/s on a v5e chip vs ~18k
-    for the reference-faithful per-cell configuration — both with the
-    fully-fused front-end+detect kernel)."""
+        proc = pipeline.make_batch_processor(fmcw_tpu.fast(),
+                                             include_maps=False)
+    """
     return RadarParams(cfar=CfarParams(scale_mode="block"))

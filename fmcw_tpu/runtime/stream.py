@@ -3,11 +3,11 @@
 The reference overlaps everything in hardware: while the corner turner's
 write bank fills with frame N, the read bank drains frame N-1, and an
 ``overflow_error`` fires if the consumer lags (rtl/src/corner_turner.vhd:
-31-36,94-96).  The TPU equivalent (SURVEY.md §2d "double buffering"):
+31-36,94-96).  The device-side equivalent (SURVEY.md §2d "double buffering"):
 
 * host->device copies of frame N+1 are issued while frame N computes —
   ``jax.device_put`` and jitted dispatch are both asynchronous, so keeping a
-  small in-flight window pipelines PCIe/ICI transfer under compute;
+  small in-flight window pipelines the PCIe transfer under compute;
 * a bounded in-flight window provides backpressure; in ``drop`` mode an
   overloaded pipeline skips input frames and counts them (the overflow_error
   analog) instead of stalling the source.
@@ -82,7 +82,7 @@ class FrameAssembler:
     """Assemble whole CPI frames from arbitrarily-chunked sample streams.
 
     The reference ingests one sample per clock with tvalid gaps and
-    backpressure (every TB exercises this — SURVEY.md §4); the TPU framework
+    backpressure (every TB exercises this — SURVEY.md §4); the framework
     ingests whole frames, so this adapter reassembles them: feed int16 I/Q
     sample chunks of any length (the AXI-Stream analog), get complete
     (n_doppler, n_range, 2) frames out.  Chunk boundaries never affect the

@@ -126,8 +126,7 @@ def run_surveillance(proc: Callable, frames: Iterable[np.ndarray],
     (utils/checkpoint.py).
 
     ``watchdog_timeout``: wall-clock seconds a single frame-batch dispatch
-    (including its device->host readback — where tunnel/device stalls
-    surface) may take before the runtime raises SurveillanceStallError
+    (including its device->host readback — where device stalls surface) may take before the runtime raises SurveillanceStallError
     instead of blocking forever — the TB watchdog analog
     (tb_radar_core.vhd:136-146).  None disables it.  First-dispatch
     compilation counts toward the budget; size it to cover compile time or

@@ -5,7 +5,7 @@ The reference validates its detector statistically in-testbench — "at least
 (rtl/src/tb_os_cfar_2d.vhd:131-155).  This module is the framework-grade
 version of that idea: Monte-Carlo probability-of-detection curves vs SNR and
 noise-only false-alarm rates, per CFAR variant and scale mode — the radar
-analog of a model-quality eval, runnable on CPU or TPU.
+analog of a model-quality eval, runnable on the CPU or the GPU.
 
 Definitions:
 

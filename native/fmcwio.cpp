@@ -1,7 +1,7 @@
-// fmcwio — native IO/runtime support for the TPU radar framework.
+// fmcwio — native IO/runtime support for the radar framework.
 //
 // The reference framework's "native" layer is its VHDL datapath + testbench
-// textio writers (SURVEY.md §2); this library is the TPU framework's host-side
+// textio writers (SURVEY.md §2); this library is the framework's host-side
 // native counterpart: fast parsers for the reference text formats (the Python
 // loops are ~30x slower on 131k-line frame files) and a blocking SPSC frame
 // ring buffer used by the streaming runtime to overlap host-side frame

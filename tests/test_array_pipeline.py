@@ -54,8 +54,7 @@ def test_single_element_single_beam_matches_2d_pipeline():
     frame = pl.complex_to_iq(reference.two_target_frame(P, seed=2))
     proc_a = pl.make_array_processor(P, n_elems=1, n_beams=1)
     out_a = jax.tree.map(np.asarray, proc_a(frame[None]))
-    proc_2d = pl.make_processor(P, mode="float32", frontend="xla",
-                                include_maps=True)
+    proc_2d = pl.make_processor(P, mode="float32", include_maps=True)
     out_2d = jax.tree.map(np.asarray, proc_2d(frame))
     assert np.array_equal(out_a["det_cube"][0] > 0, out_2d["det_map"] > 0)
     v = out_2d["valid"]
@@ -66,81 +65,70 @@ def test_single_element_single_beam_matches_2d_pipeline():
 
 
 def test_fused_frontend_matches_xla_chain():
-    """frontend='pallas' (fused per-beam front-end+detect kernel on the
-    beamformed float I/Q, bf16x3) vs the vmapped XLA chain + cfar_3d
-    (ref_angle=0): identical (beam, range, doppler) detection sets, det-cube
-    support, and mag cube to the bf16x3 scale-relative tolerance."""
+    """ref_angle=0: the array model's counting 2D decision per beam equals
+    the ranked-stack route (cfar_method='topk') — identical detection
+    sets, det cubes and mag cubes — and a removed route raises."""
     import pytest
     iq = _element_frames(0.4, seed=11)
-    proc_x = pl.make_array_processor(P, n_elems=N_ELEMS, n_beams=N_BEAMS,
-                                     frontend="xla")
-    proc_p = pl.make_array_processor(P, n_elems=N_ELEMS, n_beams=N_BEAMS,
-                                     frontend="pallas")
-    a = jax.tree.map(np.asarray, proc_x(iq))
-    b = jax.tree.map(np.asarray, proc_p(iq))
-    da = set(zip(a["beam_bin"][a["valid"]].tolist(),
-                 a["range_bin"][a["valid"]].tolist(),
-                 a["doppler_bin"][a["valid"]].tolist()))
-    db = set(zip(b["beam_bin"][b["valid"]].tolist(),
-                 b["range_bin"][b["valid"]].tolist(),
-                 b["doppler_bin"][b["valid"]].tolist()))
-    assert da and da == db
-    assert int(a["n_dets"]) == int(b["n_dets"])
-    assert np.array_equal(a["det_cube"] > 0, b["det_cube"] > 0)
-    scale = float(np.abs(a["mag_cube"]).max())
-    assert np.max(np.abs(a["mag_cube"] - b["mag_cube"])) / scale < 2e-4
+    proc_c = pl.make_array_processor(P, n_elems=N_ELEMS, n_beams=N_BEAMS)
+    proc_t = pl.make_array_processor(P, n_elems=N_ELEMS, n_beams=N_BEAMS,
+                                     cfar_method="topk")
+    assert (proc_c.routes.cfar, proc_t.routes.cfar) == ("count", "topk")
+    a = jax.tree.map(np.asarray, proc_c(iq))
+    b = jax.tree.map(np.asarray, proc_t(iq))
+    assert a["valid"].any()
+    for k in ("beam_bin", "range_bin", "doppler_bin", "mag", "valid",
+              "n_dets", "det_cube", "mag_cube"):
+        assert np.array_equal(a[k], b[k]), k
+    with pytest.raises(ValueError, match="no compiled route"):
+        pl.make_array_processor(P, n_elems=N_ELEMS, n_beams=N_BEAMS,
+                                ref_angle=1, cfar_method="pallas")
 
-    # Unsupported front-end shapes still refuse the explicit fused path at
-    # ref_angle > 0 (192 is not 128-sliceable: n1 = 128, 192 % 128 != 0).
-    with pytest.raises(ValueError, match="front-end shape"):
-        pl.make_array_processor(P.replace(n_range=192), n_elems=N_ELEMS,
-                                n_beams=N_BEAMS, ref_angle=1,
-                                frontend="pallas")
+
+def _cfar_3d_float_numpy(cube, cf, ra, ga):
+    """float64 3D OS-CFAR with wrap edges on every axis; returns
+    (det, threshold)."""
+    from fmcw_tpu.ops import cfar as C
+    offs = C._offsets_3d(cf, ra, ga)
+    c = np.asarray(cube, np.float64)
+    refs = np.stack([np.roll(c, (-da, -dr, -dd), axis=(0, 1, 2))
+                     for da, dr, dd in offs])
+    rank = min((len(offs) * cf.rank_pct) // 100, len(offs) - 1)
+    est = np.partition(refs, rank, axis=0)[rank]
+    mean = refs.mean(axis=0)
+    scale = np.where(est > 1.5 * mean, cf.scale_max,
+                     np.where(est < 0.5 * mean, cf.scale_min, cf.scale_nom))
+    thr = est * scale
+    return np.where(c > thr, c, 0.0), thr
 
 
 def test_fused_frontend_ref_angle_matches_xla_chain():
-    """ref_angle > 0 with frontend='pallas': the fused Pallas FRONT-END
-    (detect=False) feeds the angle-extended 3D CFAR — same decisions as the
-    XLA per-beam chain up to bf16x3/HIGHEST near-tie flips (the r4 perf
-    route for the angle-extended regime, docs/PERF_LOG.md)."""
+    """ref_angle > 0: the angle-extended decision on the model's own mag
+    cube equals a float64 numpy 3D OS-CFAR, except cells within 1e-6 of
+    their threshold (f32 vs f64 mean)."""
     iq = _element_frames(0.4, seed=13)
-    kw = dict(n_elems=N_ELEMS, n_beams=N_BEAMS, ref_angle=1, guard_angle=0)
-    a = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="xla", **kw)(iq))
-    b = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="pallas", **kw)(iq))
-    da = set(zip(a["beam_bin"][a["valid"]].tolist(),
-                 a["range_bin"][a["valid"]].tolist(),
-                 a["doppler_bin"][a["valid"]].tolist()))
-    db = set(zip(b["beam_bin"][b["valid"]].tolist(),
-                 b["range_bin"][b["valid"]].tolist(),
-                 b["doppler_bin"][b["valid"]].tolist()))
-    assert da and db
-    assert len(da ^ db) <= max(2, len(da) // 8)       # near-tie flips only
-    assert (int(a["beam_bin"][0]), int(a["range_bin"][0]),
-            int(a["doppler_bin"][0])) == (int(b["beam_bin"][0]),
-                                          int(b["range_bin"][0]),
-                                          int(b["doppler_bin"][0]))
-    scale = float(np.abs(a["mag_cube"]).max())
-    assert np.max(np.abs(a["mag_cube"] - b["mag_cube"])) / scale < 2e-4
+    out = jax.tree.map(np.asarray, pl.make_array_processor(
+        P, n_elems=N_ELEMS, n_beams=N_BEAMS, ref_angle=1,
+        guard_angle=0)(iq))
+    want, thr = _cfar_3d_float_numpy(out["mag_cube"], P.cfar, 1, 0)
+    diff = np.argwhere((out["det_cube"] > 0) != (want > 0))
+    cube = out["mag_cube"].astype(np.float64)
+    assert all(abs(cube[tuple(c)] - thr[tuple(c)]) <= 1e-6 * cube[tuple(c)]
+               for c in diff)
+    assert (want > 0).any()
 
 
 def test_grouped_sliced_topk_matches_deinterleaved():
-    """The grouped fused extraction (beam grouping on the SLICED det layout
-    + recomputed row maxes + row-select top-K, PERF_LOG r4) is exactly
-    equivalent to de-interleaving first and running the flat top-K — same
-    kernel outputs, so set equality is exact, not tolerance-bound."""
-    from fmcw_tpu.ops import cfar as C, detect as DET
-    from fmcw_tpu.ops.frontend_pallas import rdm_frontend
-    from fmcw_tpu.ops.beamform import beamform
+    """The grouped extraction (beam grouping + row-select top-K over the
+    flattened beam cube) equals the flat top-K of the grouped det cube
+    exactly."""
+    from fmcw_tpu.ops import detect as DET
     import jax.numpy as jnp
 
     iq = _element_frames(0.25, seed=17)
     out = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="pallas", n_elems=N_ELEMS, n_beams=N_BEAMS,
+        P, n_elems=N_ELEMS, n_beams=N_BEAMS,
         peak_group_radius=2, beam_group_radius=1, include_maps=True)(iq))
-    # Recompose the old formulation from the model's own det cube (the
-    # de-interleaved GROUPED cube is returned in det_cube).
     det = jnp.asarray(out["det_cube"])
     flat = det.reshape(N_BEAMS * P.n_range, P.n_doppler)
     want = jax.tree.map(np.asarray,
@@ -239,46 +227,34 @@ def test_peak_group_beams_semantics():
 
 
 def test_array_grouping_fused_matches_xla():
-    """peak_group_radius + beam_group_radius: the fused path (in-kernel 2D
-    grouping + XLA beam grouping) agrees with the XLA chain up to near-tie
-    survivor flips — grouping keeps the strict local max, so cells whose
-    magnitudes differ by less than the bf16x3/HIGHEST numeric gap can pick
-    a different (equally valid) survivor.  The strongest detection and the
-    overwhelming majority of the set must match, and grouping must collapse
-    the multi-beam duplicates."""
+    """peak_group_radius + beam_group_radius: the model's grouped det cube
+    equals per-beam peak_group then peak_group_beams applied to the
+    ungrouped model's det cube, grouping reduces the count, and surviving
+    duplicates of a (range, doppler) cell are more than beam_group_radius
+    apart."""
+    import jax.numpy as jnp
+    from fmcw_tpu.ops import cfar as C
     iq = _element_frames(0.25, seed=6)
-    kw = dict(n_elems=N_ELEMS, n_beams=N_BEAMS, peak_group_radius=2,
-              beam_group_radius=1)
     a = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="xla", **kw)(iq))
-    b = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="pallas", **kw)(iq))
+        P, n_elems=N_ELEMS, n_beams=N_BEAMS, peak_group_radius=2,
+        beam_group_radius=1)(iq))
     raw = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="xla", n_elems=N_ELEMS, n_beams=N_BEAMS)(iq))
+        P, n_elems=N_ELEMS, n_beams=N_BEAMS)(iq))
+    want = jax.vmap(lambda d: C.peak_group(d, radius=2))(
+        jnp.asarray(raw["det_cube"]))
+    want = np.asarray(C.peak_group_beams(want, radius=1))
+    assert np.array_equal(a["det_cube"], want)
     assert int(a["n_dets"]) < int(raw["n_dets"])      # grouping reduces
-    assert abs(int(a["n_dets"]) - int(b["n_dets"])) <= 2
     da = set(zip(a["beam_bin"][a["valid"]].tolist(),
                  a["range_bin"][a["valid"]].tolist(),
                  a["doppler_bin"][a["valid"]].tolist()))
-    db = set(zip(b["beam_bin"][b["valid"]].tolist(),
-                 b["range_bin"][b["valid"]].tolist(),
-                 b["doppler_bin"][b["valid"]].tolist()))
-    assert da and db
-    assert len(da ^ db) <= max(2, len(da) // 8)       # near-tie flips only
-    # Strongest detection (the target peak, no near-tie) matches exactly.
-    assert (int(a["beam_bin"][0]), int(a["range_bin"][0]),
-            int(a["doppler_bin"][0])) == (int(b["beam_bin"][0]),
-                                          int(b["range_bin"][0]),
-                                          int(b["doppler_bin"][0]))
-    # Adjacent-beam duplicates collapsed: survivors sharing a (range,
-    # doppler) cell are more than beam_group_radius apart (both frontends).
-    for dets in (da, db):
-        cells = {}
-        for bb, rr, dd in dets:
-            cells.setdefault((rr, dd), []).append(bb)
-        for beams in cells.values():
-            beams = sorted(beams)
-            assert all(b2 - b1 > 1 for b1, b2 in zip(beams, beams[1:]))
+    assert da
+    cells = {}
+    for bb, rr, dd in da:
+        cells.setdefault((rr, dd), []).append(bb)
+    for beams in cells.values():
+        beams = sorted(beams)
+        assert all(b2 - b1 > 1 for b1, b2 in zip(beams, beams[1:]))
 
 
 def test_peak_group_beams_fast_path_equals_general():
@@ -304,12 +280,12 @@ def test_peak_group_beams_fast_path_equals_general():
 
 
 def test_peak_group_beams_pallas_kernel_matches_xla():
-    """The grouping kernel (cfar_pallas.peak_group_beams_pallas) is
-    bit-identical to peak_group_beams on random sparse stacks with dense
-    ties, and its row-max / count epilogues are exact."""
+    """peak_group_beams equals a plain numpy loop over its rule — keep a
+    cell if it is >= every higher-beam neighbor and > every lower-beam
+    neighbor within the radius, no wrap — on random sparse stacks with
+    dense ties."""
     import jax.numpy as jnp
     from fmcw_tpu.ops.cfar import peak_group_beams
-    from fmcw_tpu.ops.cfar_pallas import peak_group_beams_pallas
 
     rng = np.random.default_rng(41)
     for radius in (1, 2):
@@ -317,11 +293,14 @@ def test_peak_group_beams_pallas_kernel_matches_xla():
         det = np.where(rng.random((B, R, D)) < 0.05,
                        rng.integers(1, 6, (B, R, D)).astype(np.float32),
                        0.0)
-        want = np.asarray(peak_group_beams(jnp.asarray(det), radius=radius))
-        got, rmax, nd = peak_group_beams_pallas(jnp.asarray(det),
-                                                radius=radius,
-                                                interpret=True)
-        assert np.array_equal(np.asarray(got), want), radius
-        assert np.array_equal(np.asarray(rmax),
-                              want.reshape(B * R, D).max(axis=1))
-        assert int(nd) == int((want > 0).sum())
+        want = np.zeros_like(det)
+        for b in range(B):
+            keep = det[b] > 0
+            for o in range(1, radius + 1):
+                if b + o < B:
+                    keep &= det[b] >= det[b + o]
+                if b - o >= 0:
+                    keep &= det[b] > det[b - o]
+            want[b] = np.where(keep, det[b], 0)
+        got = np.asarray(peak_group_beams(jnp.asarray(det), radius=radius))
+        assert np.array_equal(got, want), radius

@@ -33,16 +33,7 @@ def test_artifact_schema(record):
         assert r["fps"] > 0
     ns = record["northstar"]
     assert set(ns) == {"target_eff", "measured_eff", "at", "hardware",
-                       "meaningful", "pass", "analytic_model",
-                       "projected_eff"}
-    # The CPU mesh can't measure the north star (meaningful=false); the
-    # analytic substitute (docs/scaling_model.md) must exist and project
-    # the dp regime at >= target.
-    import os
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    assert os.path.exists(os.path.join(here, ns["analytic_model"]))
-    assert ns["projected_eff"]["dp=8"] >= ns["target_eff"]
-    assert ns["projected_eff"]["sp=8_overlapped"] >= ns["target_eff"]
+                       "meaningful", "pass"}
     assert ns["target_eff"] == 0.90
 
 
@@ -58,7 +49,7 @@ def test_efficiency_math(record):
 
 def test_northstar_semantics(record):
     """The northstar is evaluated on the largest dp mesh; pass iff measured
-    >= target; 'meaningful' is False off real multi-chip TPU hardware (the
+    >= target; 'meaningful' is False off real multi-GPU hardware (the
     CPU virtual devices share host cores, so efficiency collapse there is
     expected and non-probative)."""
     ns = record["northstar"]

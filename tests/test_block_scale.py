@@ -5,7 +5,7 @@ scale_max} clutter classification coarsens to scale_block x scale_block
 tiles, classified from each tile's 3x3-block neighborhood; the OS threshold
 decision stays exact per cell.  Parity chain verified here:
 
-    golden numpy (int)  ==  XLA cfar_2d  ==  Pallas detect kernel (interpret)
+    golden numpy (int)  ==  cfar_2d (ranked stack)  ==  cfar_2d_count
 
 plus the counting-form <-> explicit-percentile equivalence, the override
 short-circuit (block == cell under a global override), and false-alarm-rate
@@ -22,7 +22,6 @@ import jax.numpy as jnp
 from fmcw_tpu.params import CfarParams, RadarParams
 from fmcw_tpu.golden import fixed_point as fp
 from fmcw_tpu.ops import cfar as C
-from fmcw_tpu.ops.cfar_pallas import cfar_2d_pallas_detect
 
 BLOCK = CfarParams(scale_mode="block")
 
@@ -90,21 +89,21 @@ def test_golden_vs_xla_int(edge_mode):
     np.testing.assert_array_equal(det_g, np.asarray(det_x))
 
 
-def test_pallas_detect_matches_xla_int():
+def test_count_detect_matches_xla_int():
     m = _int_map(3)
     det_x, _, scale_x = C.cfar_2d(jnp.asarray(m), 0, cfar=BLOCK, integer=True)
-    det_p, scale_p = cfar_2d_pallas_detect(jnp.asarray(m), 0, cfar=BLOCK,
-                                           integer=True, interpret=True)
+    det_p, scale_p = C.cfar_2d_count(jnp.asarray(m), 0, cfar=BLOCK,
+                                     integer=True)
     np.testing.assert_array_equal(np.asarray(det_x), np.asarray(det_p))
     np.testing.assert_array_equal(np.asarray(scale_x), np.asarray(scale_p))
 
 
-def test_pallas_detect_matches_xla_float():
+def test_count_detect_matches_xla_float():
     m = _int_map(4).astype(np.float32) * 1.37
     det_x, _, scale_x = C.cfar_2d(jnp.asarray(m), 0, cfar=BLOCK,
                                   integer=False)
-    det_p, scale_p = cfar_2d_pallas_detect(jnp.asarray(m), 0, cfar=BLOCK,
-                                           integer=False, interpret=True)
+    det_p, scale_p = C.cfar_2d_count(jnp.asarray(m), 0, cfar=BLOCK,
+                                     integer=False)
     np.testing.assert_array_equal(np.asarray(det_x), np.asarray(det_p))
     np.testing.assert_array_equal(np.asarray(scale_x), np.asarray(scale_p))
 
@@ -118,8 +117,8 @@ def test_override_short_circuits_to_cell_semantics():
     det_b, thr_b, _ = C.cfar_2d(jnp.asarray(m), 5, cfar=BLOCK, integer=True)
     np.testing.assert_array_equal(np.asarray(det_c), np.asarray(det_b))
     np.testing.assert_array_equal(np.asarray(thr_c), np.asarray(thr_b))
-    det_p, scale_p = cfar_2d_pallas_detect(jnp.asarray(m), 5, cfar=BLOCK,
-                                           integer=True, interpret=True)
+    det_p, scale_p = C.cfar_2d_count(jnp.asarray(m), 5, cfar=BLOCK,
+                                     integer=True)
     np.testing.assert_array_equal(np.asarray(det_c), np.asarray(det_p))
     assert np.all(np.asarray(scale_p) == 5)
 

@@ -47,7 +47,7 @@ def test_variants_match_golden_full_geometry():
 def test_cfar_3d_independent_angles():
     cube = np.stack([_map(s) for s in range(4)])
     det, thr, sc = C.cfar_3d(cube, 0, cfar=CF, integer=True,
-                             ref_angle=0, method="xla")
+                             ref_angle=0, method="topk")
     # Per-angle results equal the 2D op applied per plane.
     for a in range(4):
         d2, _, _ = C.cfar_2d(cube[a], 0, cfar=CF, integer=True)
@@ -64,7 +64,7 @@ def test_cfar_3d_angle_training():
     # Enlarged training set: n_ref grows by the extra angle planes -> the
     # threshold map differs from the per-angle case somewhere.
     det0, thr0, _ = C.cfar_3d(cube, 0, cfar=CF, integer=True, ref_angle=0,
-                              method="xla")
+                              method="topk")
     assert not np.array_equal(np.asarray(thr), np.asarray(thr0))
 
 
@@ -125,19 +125,34 @@ def test_beamform_feeds_cfar_3d():
     im[:, 10, 8] += 500 * w.imag.astype(np.float32)
     cube = BF.beam_cube(re, im, B)
     det, _, _ = C.cfar_3d(cube, 0, cfar=CF, integer=False, ref_angle=1,
-                          method="xla")
+                          method="topk")
     d = np.asarray(det)
     assert d[5, 10, 8] > 0
     assert (d > 0).sum() <= 8  # target (+ possible beam sidelobes) only
 
 
+def _cfar_3d_numpy(cube, cf, ra, ga, so=0):
+    """Plain numpy 3D OS-CFAR (integer): the box-minus-guard-box training
+    set over angle x range x Doppler, padded per edge_mode on every axis."""
+    ha, hr, hd = ra + ga, cf.halo_range, cf.halo_doppler
+    A, R, D = cube.shape
+    pad = np.pad(cube.astype(np.int64), ((ha, ha), (hr, hr), (hd, hd)),
+                 mode=cf.edge_mode)
+    offs = C._offsets_3d(cf, ra, ga)
+    refs = np.stack([pad[ha + da:ha + da + A, hr + dr:hr + dr + R,
+                         hd + dd:hd + dd + D] for da, dr, dd in offs])
+    rank = min((len(offs) * cf.rank_pct) // 100, len(offs) - 1)
+    est = np.partition(refs, rank, axis=0)[rank]
+    mean = refs.sum(axis=0) // len(offs)
+    scale = fx.cfar_scale(est, mean, cf, so)
+    return np.where(cube > est * scale, cube, 0), scale
+
+
 def test_cfar_3d_pallas_method_matches_xla():
-    """The angle-extended counting kernel (flattened (angle, range)-row
-    layout, ops/cfar_pallas.cfar_3d_pallas_detect) makes identical
-    decisions to the XLA cfar_3d body: det cube and scale bit-equal in
-    integer AND float mode, wrap and reflect edges, with guard planes and
-    a scale override, plus the prepadded-angle (sharded beam-halo)
-    framing."""
+    """The angle-extended decision (cfar_3d's stacked body) equals a plain
+    numpy 3D OS-CFAR: det cube and scale bit-equal, wrap and reflect
+    edges, with guard planes and a scale override, plus the
+    prepadded-angle (sharded beam-halo) framing."""
     rng = np.random.default_rng(5)
     cases = [
         ((4, 16, 8), CfarParams(ref_range=1, ref_doppler=1, guard_range=1,
@@ -147,42 +162,32 @@ def test_cfar_3d_pallas_method_matches_xla():
                                  edge_mode="reflect"), 2, 1),
     ]
     for (A, R, D), cf, ra, ga in cases:
-        for integer in (True, False):
-            dt = np.int32 if integer else np.float32
-            cube = rng.integers(0, 30000, size=(A, R, D)).astype(dt)
-            for so in (0, 3):
-                d1, _, s1 = C.cfar_3d(cube, so, cfar=cf, integer=integer,
-                                      ref_angle=ra, guard_angle=ga,
-                                      method="xla")
-                d2, t2, s2 = C.cfar_3d(cube, so, cfar=cf, integer=integer,
-                                       ref_angle=ra, guard_angle=ga,
-                                       method="pallas", need_debug=False)
-                assert t2 is None
-                assert np.array_equal(np.asarray(d1), np.asarray(d2))
-                assert np.array_equal(np.asarray(s1).astype(np.int32),
-                                      np.asarray(s2).astype(np.int32))
-        ha = ra + ga
         cube = rng.integers(0, 30000, size=(A, R, D)).astype(np.int32)
-        pre = np.concatenate([cube[-ha:], cube, cube[:ha]], axis=0)
-        d1, _, s1 = C.cfar_3d(pre, 0, cfar=cf, integer=True, ref_angle=ra,
-                              guard_angle=ga, prepadded_angle=True,
-                              method="xla")
-        d2, _, s2 = C.cfar_3d(pre, 0, cfar=cf, integer=True, ref_angle=ra,
-                              guard_angle=ga, prepadded_angle=True,
-                              method="pallas", need_debug=False)
-        assert np.array_equal(np.asarray(d1), np.asarray(d2))
-        assert np.array_equal(np.asarray(s1), np.asarray(s2))
+        for so in (0, 3):
+            d1, _, s1 = C.cfar_3d(cube, so, cfar=cf, integer=True,
+                                  ref_angle=ra, guard_angle=ga)
+            d2, s2 = _cfar_3d_numpy(cube, cf, ra, ga, so)
+            assert np.array_equal(np.asarray(d1), d2)
+            assert np.array_equal(np.asarray(s1), s2)
+        if cf.edge_mode == "wrap":
+            ha = ra + ga
+            pre = np.concatenate([cube[-ha:], cube, cube[:ha]], axis=0)
+            d3, _, _ = C.cfar_3d(pre, 0, cfar=cf, integer=True,
+                                 ref_angle=ra, guard_angle=ga,
+                                 prepadded_angle=True)
+            assert np.array_equal(np.asarray(d3),
+                                  _cfar_3d_numpy(cube, cf, ra, ga)[0])
 
 
 def test_cfar_3d_pallas_vmap_matches_percube():
-    """The array model vmaps cfar_3d over the frame batch; the kernel
-    dispatch under vmap must equal per-cube calls."""
+    """The array model vmaps cfar_3d over the frame batch; the decision
+    under vmap must equal per-cube calls."""
     rng = np.random.default_rng(9)
     cf = CfarParams(ref_range=1, ref_doppler=1, guard_range=1,
                     guard_doppler=1)
     cubes = rng.integers(0, 30000, size=(2, 4, 16, 8)).astype(np.int32)
     f = lambda c: C.cfar_3d(c, 0, cfar=cf, integer=True, ref_angle=1,
-                            guard_angle=0, method="pallas", need_debug=False)[0]
+                            guard_angle=0, need_debug=False)[0]
     batched = jax.vmap(f)(cubes)
     for b in range(2):
         one = f(cubes[b])
@@ -190,9 +195,9 @@ def test_cfar_3d_pallas_vmap_matches_percube():
 
 
 def test_cfar_3d_pallas_random_geometry_fuzz():
-    """Randomized geometries for the angle-extended kernel: cube/window
+    """Randomized geometries for the angle-extended decision: cube/window
     shapes, guard planes, wrap/reflect edges drawn at random must match
-    the XLA cfar_3d body bit-for-bit in integer mode."""
+    the numpy 3D OS-CFAR bit-for-bit."""
     rng = np.random.default_rng(17)
     for _ in range(5):
         cf = CfarParams(ref_range=int(rng.integers(1, 3)),
@@ -206,50 +211,28 @@ def test_cfar_3d_pallas_random_geometry_fuzz():
         D = int(rng.choice([8, 16]))
         cube = rng.integers(0, 30000, size=(A, R, D)).astype(np.int32)
         d1, _, s1 = C.cfar_3d(cube, 0, cfar=cf, integer=True, ref_angle=ra,
-                              guard_angle=ga, method="xla")
-        d2, _, s2 = C.cfar_3d(cube, 0, cfar=cf, integer=True, ref_angle=ra,
-                              guard_angle=ga, method="pallas", need_debug=False)
-        assert np.array_equal(np.asarray(d1), np.asarray(d2)), (cf, ra, ga)
-        assert np.array_equal(np.asarray(s1), np.asarray(s2)), (cf, ra, ga)
+                              guard_angle=ga)
+        d2, s2 = _cfar_3d_numpy(cube, cf, ra, ga)
+        assert np.array_equal(np.asarray(d1), d2), (cf, ra, ga)
+        assert np.array_equal(np.asarray(s1), s2), (cf, ra, ga)
 
 
 def test_cfar_3d_pallas_contract_guards():
-    """Review-finding regressions: the kernel path returns scale in the
-    cube's dtype (int16 cubes included), rejects map-valued and float
-    scale overrides with clear errors instead of silently diverging from
-    the XLA body, and method='pallas' without need_debug=False raises
-    (no threshold taps)."""
+    """Narrow integer cubes upcast internally (est*scale would wrap in
+    int16 at full scale): det returns int16, scale int32.  A route with no
+    compiled 3D lowering raises instead of falling back."""
     import pytest
-    from fmcw_tpu.ops.cfar_pallas import cfar_3d_pallas_detect
     rng = np.random.default_rng(23)
     cf = CfarParams(ref_range=1, ref_doppler=1, guard_range=1,
                     guard_doppler=1)
-    # Narrow integer cubes upcast internally (est*scale would wrap in
-    # int16 at full scale): det returns int16, scale int32, decisions
-    # identical across methods even at full-scale values.
     cube16 = rng.integers(0, 30000, size=(4, 16, 8)).astype(np.int16)
-    d1, _, s1 = C.cfar_3d(cube16, 0, cfar=cf, integer=True, ref_angle=1,
-                          method="xla")
-    d2, t2, s2 = C.cfar_3d(cube16, 0, cfar=cf, integer=True, ref_angle=1,
-                           method="pallas", need_debug=False)
-    assert t2 is None
-    assert np.asarray(d1).dtype == np.asarray(d2).dtype == np.int16
-    assert np.asarray(s2).dtype == np.asarray(s1).dtype == np.int32
-    assert np.array_equal(np.asarray(d1), np.asarray(d2))
-    assert np.array_equal(np.asarray(s1), np.asarray(s2))
-    # and the upcast really fixed the wrap: the int32 run agrees
+    d1, _, s1 = C.cfar_3d(cube16, 0, cfar=cf, integer=True, ref_angle=1)
+    assert np.asarray(d1).dtype == np.int16
+    assert np.asarray(s1).dtype == np.int32
     d32, _, _ = C.cfar_3d(cube16.astype(np.int32), 0, cfar=cf, integer=True,
-                          ref_angle=1, method="xla")
+                          ref_angle=1)
     assert np.array_equal(np.asarray(d1), np.asarray(d32).astype(np.int16))
-
-    cube = cube16.astype(np.int32)
-    with pytest.raises(ValueError, match="SCALAR scale_override"):
-        cfar_3d_pallas_detect(cube, np.full((4, 16, 8), 3, np.int32),
-                              cfar=cf, integer=True, ref_angle=1,
-                              interpret=True)
-    with pytest.raises(ValueError, match="integer scale_override"):
-        cfar_3d_pallas_detect(cube, np.float32(3.5), cfar=cf, integer=True,
-                              ref_angle=1, interpret=True)
-    with pytest.raises(ValueError, match="threshold taps"):
-        C.cfar_3d(cube, 0, cfar=cf, integer=True, ref_angle=1,
-                  method="pallas")
+    for method in ("pallas", "count"):
+        with pytest.raises(ValueError, match="no compiled route"):
+            C.cfar_3d(cube16, 0, cfar=cf, integer=True, ref_angle=1,
+                      method=method)

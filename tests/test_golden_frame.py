@@ -60,7 +60,7 @@ def test_fixed_chain_detection_clusters(frame):
     assert dops2 <= set(range(117, 120))  # Doppler -10 == 118 +-1
 
 
-def test_fixed_chain_parity_vs_golden_map(frame):
+def test_fixed_chain_parity_vs_golden_map(frame, reference_data):
     """Power-concentration parity with data/radar_output.txt.
 
     Both the reference xsim map and our fixed chain (bypass mode — the golden
@@ -85,7 +85,7 @@ def test_fixed_chain_parity_vs_golden_map(frame):
     assert toprows(mine) <= set(T1_ROWS) | set(T2_ROWS)
 
 
-def test_golden_input_chirp_tone():
+def test_golden_input_chirp_tone(reference_data):
     """The checked-in golden chirp is a ~0.2833 cyc/sample tone: windowed
     range FFT of its first 1024 samples must peak at bin 290."""
     z = rio.golden_input_chirp()[:1024]

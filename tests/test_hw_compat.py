@@ -310,7 +310,7 @@ def test_pipeline_hw_compat_mode():
     from fmcw_tpu.golden import reference as ref
     p = P.quick()
     frame = ref.two_target_frame(p, seed=5)
-    proc = pl.make_processor(p, mode="fixed", frontend="xla",
+    proc = pl.make_processor(p, mode="fixed",
                              cfar_geometry="hw_stream",
                              window_rounding="biased",
                              mti_transient="passthrough")
@@ -341,7 +341,7 @@ def test_pipeline_hw_compat_rejects_bad_config():
         pl.make_processor(p_ca, cfar_geometry="hw_stream")
     with pytest.raises(ValueError):
         pl.make_processor(p, cfar_geometry="hw_stream", mode="fixed",
-                          frontend="pallas")
+                          cfar_method="pallas")
 
 
 def test_pipeline_hw_stream_continuous_matches_golden():
@@ -354,7 +354,7 @@ def test_pipeline_hw_stream_continuous_matches_golden():
     from fmcw_tpu.golden import reference as ref
     p = P.quick()
     frames = [ref.two_target_frame(p, seed=s) for s in (11, 12, 13)]
-    proc = pl.make_processor(p, mode="fixed", frontend="xla",
+    proc = pl.make_processor(p, mode="fixed",
                              cfar_geometry="hw_stream",
                              window_rounding="biased",
                              mti_transient="passthrough",
@@ -372,7 +372,7 @@ def test_pipeline_hw_stream_continuous_matches_golden():
     # Golden comparison over the pipeline's OWN mag maps (the XLA fixed
     # chain's FFT quantization sits within 1 LSB of the golden chain's, so
     # using its maps makes the streaming-logic comparison exact).
-    mproc = pl.make_processor(p, mode="fixed", frontend="xla",
+    mproc = pl.make_processor(p, mode="fixed",
                               window_rounding="biased",
                               mti_transient="passthrough",
                               include_maps=True)
@@ -395,9 +395,8 @@ def test_pipeline_hw_stream_continuous_matches_golden():
 
 @pytest.mark.parametrize("gi", range(len(GEOMETRIES)))
 def test_xla_hw_stream_2d_layout_equals_flat(gi):
-    """The 2D row/lane view decomposition (the TPU-fast default layout) is
-    bit-identical to the legacy flat dynamic_slice formulation on every
-    output, one-shot and streaming (see docs/PERF_LOG.md round 3)."""
+    """The 2D row/lane view decomposition is bit-identical to the flat
+    dynamic_slice formulation on every output, one-shot and streaming."""
     from fmcw_tpu.ops import cfar as C
     cfar, R, D = GEOMETRIES[gi]
     f = _stim(R, D, 2, seed=60 + gi)
@@ -418,11 +417,10 @@ def test_xla_hw_stream_2d_layout_equals_flat(gi):
 
 @pytest.mark.parametrize("gi", range(len(GEOMETRIES)))
 def test_xla_hw_stream_pallas_method_equals_xla(gi):
-    """The counting-kernel method (row-carry-baked padded buffer +
-    axis-swapped CfarParams, the TPU production path — interpreted here)
-    makes identical decisions to the XLA method: det/scale/hist bit-equal
-    in integer AND float mode, one-shot and streaming, with and without a
-    scale override."""
+    """The counting decision without threshold taps (need_debug=False)
+    equals the tapped run (which also builds the rank stack): det/scale/
+    hist bit-equal in integer AND float mode, one-shot and streaming, with
+    and without a scale override."""
     from fmcw_tpu.ops import cfar as C
     cfar, R, D = GEOMETRIES[gi]
     f = _stim(R, D, 2, seed=80 + gi)
@@ -436,13 +434,13 @@ def test_xla_hw_stream_pallas_method_equals_xla(gi):
                        dict(hist=hist, streaming=True)):
                 a = C.cfar_2d_hw_stream(f[1].astype(dt), so, cfar=cfar,
                                         integer=integer, need_debug=False,
-                                        method="pallas", **kw)
+                                        **kw)
                 b = C.cfar_2d_hw_stream(f[1].astype(dt), so, cfar=cfar,
-                                        integer=integer, need_debug=False,
-                                        method="xla", **kw)
+                                        integer=integer, need_debug=True,
+                                        **kw)
                 for i, (x, y) in enumerate(zip(a, b)):
                     if i == 1:
-                        continue          # thresholds: pallas has no taps
+                        continue          # thresholds: only b has taps
                     assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
@@ -503,10 +501,10 @@ def test_pipeline_hw_compat_groups_in_decision_order():
 
 
 def test_pallas_method_random_geometry_fuzz():
-    """Randomized window geometries: the counting-kernel method's labeled
+    """Randomized window geometries: the counting decision's labeled
     detections match the golden streaming model one-shot (closing the
-    oracle == golden == xla == pallas chain on shapes beyond the fixed
-    GEOMETRIES list)."""
+    oracle == golden == jax chain on shapes beyond the fixed GEOMETRIES
+    list)."""
     from fmcw_tpu.ops import cfar as C
     rng = np.random.default_rng(42)
     for _ in range(5):
@@ -521,7 +519,7 @@ def test_pallas_method_random_geometry_fuzz():
         f = _stim(R, D, 1, seed=int(rng.integers(1 << 30)))[0]
         det_map, _, _ = C.cfar_2d_hw_stream(
             f.astype(np.int32), 0, cfar=cfar, integer=True,
-            need_debug=False, method="pallas")
+            need_debug=False)
         lr, ld, lm = fx.os_cfar_2d_hw_stream(f, cfar)
         assert _labeled_dets(det_map) == sorted(
             zip(lr.tolist(), ld.tolist(), lm.tolist())), (rr, rd, gr, gd, R, D)
@@ -544,16 +542,16 @@ def test_hw_stream_narrow_int_upcast_matches_int32():
     for kw in (dict(),
                dict(streaming=True, first=True),
                dict(hist=hist16, streaming=True)):
-        for method in ("xla", "pallas"):
+        for need_debug in (False, True):
             a = C.cfar_2d_hw_stream(f[1].astype(np.int16), 0, cfar=cfar,
-                                    integer=True, need_debug=False,
-                                    method=method, **kw)
+                                    integer=True, need_debug=need_debug,
+                                    **kw)
             kw32 = dict(kw)
             if "hist" in kw32:
                 kw32["hist"] = hist16.astype(np.int32)
             b = C.cfar_2d_hw_stream(f[1].astype(np.int32), 0, cfar=cfar,
-                                    integer=True, need_debug=False,
-                                    method=method, **kw32)
+                                    integer=True, need_debug=need_debug,
+                                    **kw32)
             assert np.asarray(a[0]).dtype == np.int16
             assert np.array_equal(np.asarray(a[0]).astype(np.int32),
                                   np.asarray(b[0]))
@@ -565,31 +563,22 @@ def test_hw_stream_narrow_int_upcast_matches_int32():
 
 
 def test_hw_stream_pallas_method_rejects_bad_overrides_and_halos():
-    """method='pallas' raises descriptive errors for overrides the SMEM
-    scalar cannot carry and for zero halos (the row-carry padding slices
-    one halo per side); method='auto' silently falls back to xla in both
-    cases instead of mis-routing (ADVICE r3)."""
+    """The one counting route takes what the removed kernel refused: a
+    float scale override (equal to the same integer override) and zero
+    halos (equal to the golden streaming model)."""
     from fmcw_tpu.ops import cfar as C
     cfar, R, D = GEOMETRIES[0]
     f = _stim(R, D, 1, seed=3)[0].astype(np.float32)
-    with pytest.raises(ValueError, match="scalar integer"):
-        C.cfar_2d_hw_stream(f, 2.0, cfar=cfar, integer=False,
-                            need_debug=False, method="pallas")
+    a = C.cfar_2d_hw_stream(f, 2.0, cfar=cfar, integer=False,
+                            need_debug=False)
+    b = C.cfar_2d_hw_stream(f, 2, cfar=cfar, integer=False,
+                            need_debug=False)
+    assert np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
     cfar0 = CfarParams(ref_range=0, ref_doppler=2, guard_range=0,
                        guard_doppler=1)
-    g = _stim(R, D, 1, seed=4)[0].astype(np.int32)
-    with pytest.raises(ValueError, match="halos"):
-        C.cfar_2d_hw_stream(g, 0, cfar=cfar0, integer=True,
-                            need_debug=False, method="pallas")
-    # auto with a float override / zero halo: runs (on the XLA body) and
-    # matches the explicit xla method.
-    a = C.cfar_2d_hw_stream(f, 2.0, cfar=cfar, integer=False,
-                            need_debug=False, method="auto")
-    b = C.cfar_2d_hw_stream(f, 2.0, cfar=cfar, integer=False,
-                            need_debug=False, method="xla")
-    assert np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    c = C.cfar_2d_hw_stream(g, 0, cfar=cfar0, integer=True,
-                            need_debug=False, method="auto")
-    d = C.cfar_2d_hw_stream(g, 0, cfar=cfar0, integer=True,
-                            need_debug=False, method="xla")
-    assert np.array_equal(np.asarray(c[0]), np.asarray(d[0]))
+    g = _stim(R, D, 1, seed=4)[0]
+    det_map, _, _ = C.cfar_2d_hw_stream(g.astype(np.int32), 0, cfar=cfar0,
+                                        integer=True, need_debug=False)
+    lr, ld, lm = fx.os_cfar_2d_hw_stream(g, cfar0)
+    assert _labeled_dets(det_map) == sorted(
+        zip(lr.tolist(), ld.tolist(), lm.tolist()))

@@ -1,414 +1,124 @@
-"""Long-CPI Doppler split (n_doppler = n2d*128) of the fused front-end.
+"""Long CPIs (n_doppler = 256 chirps, BASELINE config 2) on the compiled chain.
 
-For CPIs longer than 128 chirps the fused slow-time operator's MAC count
-per sample grows with n_doppler; the kernel then switches to the split
-form — elementwise MTI + Doppler window + row-block Cooley-Tukey DFT
-(ops/frontend_pallas._ct_split_rows) — whose Doppler bins land interleaved
-across n2d parity planes.  These tests pin the layout's correctness
-contracts at (256 x 256): n2r = 2 range slices x n2d = 2 parity planes,
-so both interleave axes and all carry paths are exercised.
-
-Ref: BASELINE config 2 (1024x256 long-CPI shape);
-rtl/old/radar_core_v2.vhd:17-18 (the reference's flat per-sample cost the
-split restores).
+The dense slow-time operator (ops/fft.doppler_matrices) handles any chirp
+count, so a long CPI needs no special layout: each case below is the same
+chain at n_doppler = 256 against the golden models, single-device and
+sharded.
 """
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
-import jax
-import jax.numpy as jnp
 
-from fmcw_tpu import RadarParams
-from fmcw_tpu.golden import reference
+from chip_smoke import gate_fixed, gate_float
+from fmcw_tpu import CfarParams, RadarParams
+from fmcw_tpu.golden import fixed_point as fx, reference as ref
 from fmcw_tpu.models import pipeline as pl
-from fmcw_tpu.ops.frontend_pallas import rdm_frontend
+from fmcw_tpu.ops import cfar as C
+from fmcw_tpu.routes import resolve_routes
 
 P = RadarParams(n_range=256, n_doppler=256)
-P_BLOCK = P.replace(cfar=dataclasses.replace(P.cfar, scale_mode="block",
-                                             scale_block=2))
 
 
-def _iq(p=P, seed=3):
-    return pl.complex_to_iq(reference.two_target_frame(p, seed=seed))
+def _cfg(**cfar_kw):
+    return P.replace(cfar=dataclasses.replace(P.cfar, **cfar_kw))
 
 
-def _deinterleave(planes, nr, nd):
-    n2 = max(nr // 128, 1)
-    n1 = min(nr, 128)
-    n2d = planes.shape[0] // n2
-    x = np.asarray(planes).reshape(n2, n2d, n1, nd // n2d)
-    return np.transpose(x, (2, 0, 3, 1)).reshape(nr, nd)
+@pytest.fixture(scope="module")
+def frame():
+    return ref.two_target_frame(P, seed=2)
 
 
-def test_longcpi_mag_matches_xla_chain():
-    """Split front-end magnitude == the XLA chain's to f32 tolerance, for
-    both MTI modes, bypass, and transient settings."""
-    from fmcw_tpu.ops import fft as F, magnitude as M
-
-    iq = _iq()
-    for bypass in (False, True):
-        for notch_mode, transient in ((2, "zero"), (3, "passthrough")):
-            got = rdm_frontend(jnp.asarray(iq), jnp.asarray(bypass),
-                               notch_mode=notch_mode, transient=transient,
-                               interpret=True)
-            re = jnp.asarray(iq[..., 0], jnp.float32)
-            im = jnp.asarray(iq[..., 1], jnp.float32)
-            re, im = F.fft_apply(re, im, axis=1, window=True,
-                                 method="matmul")
-            re, im = F.doppler_apply(re, im, axis=0,
-                                     bypass=jnp.asarray(bypass),
-                                     notch_mode=notch_mode,
-                                     transient=transient)
-            want = M.magnitude_float(re, im)
-            scale = float(np.abs(np.asarray(want)).max())
-            err = np.max(np.abs(np.asarray(got) - np.asarray(want))) / scale
-            assert err < 2e-5, (bypass, notch_mode, transient, err)
+@pytest.mark.parametrize("variant", ["os", "ca"])
+@pytest.mark.parametrize("scale_mode", ["cell", "block"])
+def test_longcpi_float_matches_golden(frame, scale_mode, variant):
+    p = _cfg(scale_mode=scale_mode, variant=variant)
+    out = jax.tree.map(np.asarray, pl.make_processor(p)(
+        pl.complex_to_iq(frame)))
+    want = ref.process_frame(frame, p)
+    gate = gate_float(out["mag_map"], out["det_map"], want.mag_map,
+                      want.det_map, want.threshold_map)
+    assert gate["ok"], gate
 
 
 @pytest.mark.parametrize("scale_mode", ["cell", "block"])
-def test_longcpi_detect_bitexact_vs_standalone(scale_mode):
-    """The split layout's detect epilogue keeps the bit-exact contract:
-    det map == the standalone counting kernel on the kernel's OWN mag (and
-    own scale plane in block mode), row maxes and counts consistent."""
-    from fmcw_tpu.ops.cfar_pallas import cfar_2d_pallas_detect
-
-    p = P_BLOCK if scale_mode == "block" else P
-    iq = _iq(p)
-    for so in (0, 6):
-        det_s, mag, nf, row_max, n_dets = rdm_frontend(
-            jnp.asarray(iq), jnp.asarray(False), interpret=True, cfar=p.cfar,
-            detect=True, scale_override=jnp.asarray(so, jnp.int32))
-        if scale_mode == "block":
-            mag2, scale = rdm_frontend(jnp.asarray(iq), jnp.asarray(False),
-                                       interpret=True, cfar=p.cfar)
-        else:
-            mag2, scale = rdm_frontend(jnp.asarray(iq), jnp.asarray(False),
-                                       interpret=True), None
-        assert np.array_equal(np.asarray(mag), np.asarray(mag2))
-        want, _ = cfar_2d_pallas_detect(mag2, jnp.asarray(so, jnp.int32),
-                                        cfar=p.cfar, interpret=True,
-                                        scale_map=scale)
-        got = _deinterleave(det_s, p.n_range, p.n_doppler)
-        assert np.array_equal(got, np.asarray(want))
-        assert int(nf) == 0
-        ds = np.asarray(det_s)
-        assert np.array_equal(np.asarray(row_max),
-                              ds.reshape(-1, ds.shape[-1]).max(axis=1))
-        assert int(n_dets) == int((ds > 0).sum()) > 0
+def test_longcpi_fixed_matches_golden(frame, scale_mode):
+    p = _cfg(scale_mode=scale_mode)
+    out = jax.tree.map(np.asarray, pl.make_processor(p, mode="fixed")(
+        pl.complex_to_iq(frame)))
+    mag, det = ref.process_frame_fixed(frame, p)
+    gate = gate_fixed(out["mag_map"], out["det_map"], mag, det)
+    # One BFP rounding difference at the range stage (f32 vs f64 DFT sums)
+    # grows through the 256-chirp Doppler transform: a few tens of LSB.
+    assert gate["ok"] and gate["max_mag_lsb"] <= 32, gate
 
 
-def test_longcpi_peak_group_matches_xla():
-    """In-kernel peak grouping on the doubly-interleaved det slices ==
-    ops/cfar.peak_group on the de-interleaved map (wrap seams, parity
-    carries, and the id tie-break all exercised)."""
-    from fmcw_tpu.ops import cfar as C
-
-    iq = _iq(P_BLOCK, seed=9)
-    for radius in (1, 2, 3):
-        det_g, _, _, _, _ = rdm_frontend(
-            jnp.asarray(iq), jnp.asarray(False), interpret=True,
-            cfar=P_BLOCK.cfar, detect=True,
-            scale_override=jnp.asarray(0, jnp.int32),
-            peak_group_radius=radius)
-        det_u, _, _, _, _ = rdm_frontend(
-            jnp.asarray(iq), jnp.asarray(False), interpret=True,
-            cfar=P_BLOCK.cfar, detect=True,
-            scale_override=jnp.asarray(0, jnp.int32))
-        want = C.peak_group(
-            jnp.asarray(_deinterleave(det_u, P.n_range, P.n_doppler)),
-            radius=radius)
-        got = _deinterleave(det_g, P.n_range, P.n_doppler)
-        assert np.array_equal(got, np.asarray(want)), radius
-        assert (got > 0).any()
-
-
-def test_longcpi_variants_match_xla():
-    """CA/GO fused epilogues on the split layout vs cfar_2d on the
-    kernel's own mag — exact decisions (mirrored association orders)."""
-    from fmcw_tpu.ops import cfar as C
-
-    for variant in ("ca", "go"):
-        for scale_mode in ("block", "cell"):
-            p = P.replace(cfar=dataclasses.replace(
-                P.cfar, variant=variant, scale_mode=scale_mode,
-                scale_block=2))
-            iq = _iq(p, seed=5)
-            det_s, mag, _, _, n_dets = rdm_frontend(
-                jnp.asarray(iq), jnp.asarray(False), interpret=True,
-                cfar=p.cfar, detect=True,
-                scale_override=jnp.asarray(0, jnp.int32))
-            scale = None
-            if scale_mode == "block":
-                _, scale = rdm_frontend(jnp.asarray(iq), jnp.asarray(False),
-                                        interpret=True, cfar=p.cfar)
-            want, _, _ = C.cfar_2d(mag, jnp.asarray(0, jnp.int32),
-                                   cfar=p.cfar, integer=False,
-                                   scale_map=scale)
-            got = _deinterleave(det_s, p.n_range, p.n_doppler)
-            assert np.array_equal(got, np.asarray(want)), (variant,
-                                                           scale_mode)
-
-
-def test_longcpi_scale_plane_matches_block_scale_map():
-    """Scale-only emission (detect=False + cfar): the kernel's block scale
-    repeated over both interleave axes makes the same scale decisions as
-    ops/cfar.block_scale_map on the de-interleaved mag."""
-    from fmcw_tpu.ops import cfar as C
-
-    iq = _iq(P_BLOCK, seed=7)
-    mag, scale = rdm_frontend(jnp.asarray(iq), jnp.asarray(False),
-                              interpret=True, cfar=P_BLOCK.cfar)
-    want = C.block_scale_map(mag, P_BLOCK.cfar, integer=False)
-    assert np.asarray(scale).shape == (P.n_range, P.n_doppler)
-    agree = np.mean(np.asarray(scale) == np.asarray(want))
-    # Float block sums reassociate across the parity planes; decisions at
-    # hi/lo classification edges can flip in ulps (the established float
-    # contract) — require near-total agreement, not bit equality.
-    assert agree > 0.999, agree
-
-
-def test_longcpi_topk_sliced_mapping():
-    """topk_detections_sliced(n2d=2): same detection set as the flat top-K
-    over the de-interleaved map (coordinates remapped through both
-    interleave axes)."""
-    from fmcw_tpu.ops import detect as DET
-
-    rng = np.random.default_rng(11)
-    n2, n2d, n1, ndl = 2, 2, 128, 128
-    det_s = np.where(rng.random((n2 * n2d, n1, ndl)) < 0.003,
-                     rng.random((n2 * n2d, n1, ndl)).astype(np.float32) + 1.0,
-                     0.0).astype(np.float32)
-    a = jax.tree.map(np.asarray, DET.topk_detections_sliced(
-        jnp.asarray(det_s), n2d=n2d))
-    det_map = _deinterleave(det_s, n2 * n1, n2d * ndl)
-    b = jax.tree.map(np.asarray,
-                     DET.topk_detections(jnp.asarray(det_map)))
-    assert a["n_dets"] == b["n_dets"]
-    sa = set(zip(a["range_bin"][a["valid"]].tolist(),
-                 a["doppler_bin"][a["valid"]].tolist(),
-                 a["mag"][a["valid"]].tolist()))
-    sb = set(zip(b["range_bin"][b["valid"]].tolist(),
-                 b["doppler_bin"][b["valid"]].tolist(),
-                 b["mag"][b["valid"]].tolist()))
-    assert sa == sb
-
-
-def test_longcpi_pipeline_fused_matches_unfused():
-    """End to end at the split shape: fused pipeline == the same kernel
-    front-end + standalone CFAR (fuse_detect=False) — identical det maps
-    and detection sets, including peak grouping and runtime controls."""
-    iq = _iq(P_BLOCK, seed=13)
-    for pgr in (0, 2):
-        fused = pl.make_processor(P_BLOCK, mode="float32", include_maps=True,
-                                  frontend="pallas", fuse_detect=True,
-                                  peak_group_radius=pgr)
-        plain = pl.make_processor(P_BLOCK, mode="float32", include_maps=True,
-                                  frontend="pallas", fuse_detect=False,
-                                  peak_group_radius=pgr)
-        for kw in ({}, {"scale_override": 6}, {"mti_bypass": True}):
-            a = jax.tree.map(np.asarray, fused(iq, **kw))
-            b = jax.tree.map(np.asarray, plain(iq, **kw))
-            assert a["n_dets"] == b["n_dets"] > 0, (pgr, kw)
-            assert np.array_equal(a["det_map"], b["det_map"])
-            da = set(zip(a["range_bin"][a["valid"]].tolist(),
-                         a["doppler_bin"][a["valid"]].tolist()))
-            db = set(zip(b["range_bin"][b["valid"]].tolist(),
-                         b["doppler_bin"][b["valid"]].tolist()))
-            assert da == db
-
-
-@pytest.mark.slow
-def test_longcpi_production_shape_fused_matches_unfused():
-    """The BASELINE config-2 production shape itself (1024 x 256, n2r = 8
-    x n2d = 2): fused detect == same-kernel front-end + standalone CFAR,
-    golden targets found.  The small-shape tests above cover the layout
-    logic; this pins the exact shape the throughput claim is made at."""
-    p = RadarParams(n_doppler=256)
-    p = p.replace(cfar=dataclasses.replace(p.cfar, scale_mode="block"))
-    assert pl.fused_detect_supported(p)
-    iq = _iq(p, seed=2)
-    fused = pl.make_processor(p, mode="float32", include_maps=False,
-                              frontend="pallas", fuse_detect=True)
-    plain = pl.make_processor(p, mode="float32", include_maps=False,
-                              frontend="pallas", fuse_detect=False)
-    a = jax.tree.map(np.asarray, fused(iq))
-    b = jax.tree.map(np.asarray, plain(iq))
-    assert a["n_dets"] == b["n_dets"] > 0
-    da = set(zip(a["range_bin"][a["valid"]].tolist(),
-                 a["doppler_bin"][a["valid"]].tolist()))
-    db = set(zip(b["range_bin"][b["valid"]].tolist(),
-                 b["doppler_bin"][b["valid"]].tolist()))
-    assert da == db
-    rb = a["range_bin"][a["valid"]]
-    assert any(abs(int(r) - 100) <= 2 for r in rb)
-    assert any(abs(int(r) - 500) <= 2 for r in rb)
+@pytest.mark.parametrize("radius", [1, 2])
+def test_longcpi_peak_group_matches_golden(frame, radius):
+    out = jax.tree.map(np.asarray, pl.make_processor(
+        P, mode="fixed", peak_group_radius=radius)(pl.complex_to_iq(frame)))
+    _, det = ref.process_frame_fixed(frame, P)
+    want = fx.peak_group(det, radius=radius)
+    assert np.array_equal(out["det_map"] > 0, want > 0)
 
 
 def test_longcpi_random_geometry_fuzz():
-    """Randomized CFAR window geometries on the split layout (odd halos,
-    zero guards, asymmetric windows): fused detect stays bit-exact vs the
-    standalone counting kernel on the kernel's own mag — hardening the
-    (parity, carry) addressing beyond the default geometry."""
-    from fmcw_tpu.params import CfarParams
-    from fmcw_tpu.ops.cfar_pallas import cfar_2d_pallas_detect
-
-    rng = np.random.default_rng(19)
-    for trial in range(4):
-        cfar = CfarParams(
-            ref_range=int(rng.integers(1, 5)),
-            ref_doppler=int(rng.integers(1, 5)),
-            guard_range=int(rng.integers(0, 3)),
-            guard_doppler=int(rng.integers(0, 3)))
-        p = P.replace(cfar=cfar)
-        iq = _iq(p, seed=100 + trial)
-        det_s, mag, _, _, n_dets = rdm_frontend(
-            jnp.asarray(iq), jnp.asarray(False), interpret=True,
-            cfar=p.cfar, detect=True,
-            scale_override=jnp.asarray(0, jnp.int32))
-        want, _ = cfar_2d_pallas_detect(mag, jnp.asarray(0, jnp.int32),
-                                        cfar=p.cfar, interpret=True)
-        got = _deinterleave(det_s, p.n_range, p.n_doppler)
-        assert np.array_equal(got, np.asarray(want)), cfar
-        assert int(n_dets) == int((got > 0).sum())
+    """Random CFAR geometries (asymmetric windows, zero guards) on a
+    256x256 integer map: the counting route equals the golden detector."""
+    rng = np.random.default_rng(12)
+    m = np.clip(rng.gamma(2.0, 900.0, (256, 256)), 0, 45055).astype(np.int32)
+    m[::9, ::7] *= 9
+    for _ in range(4):
+        cf = CfarParams(ref_range=int(rng.integers(1, 5)),
+                        ref_doppler=int(rng.integers(1, 5)),
+                        guard_range=int(rng.integers(0, 3)),
+                        guard_doppler=int(rng.integers(0, 3)),
+                        rank_pct=int(rng.integers(50, 90)))
+        det, scale = C.cfar_2d_count(m, 0, cfar=cf, integer=True)
+        want, _, want_scale = fx.os_cfar_2d(m, cf, return_debug=True)
+        assert np.array_equal(np.asarray(det), want), cf
+        assert np.array_equal(np.asarray(scale), want_scale), cf
 
 
-@pytest.mark.slow
-def test_longcpi_n2d4_bitexact():
-    """Four parity planes (n_doppler = 512, n2d = 4): lane carries span
-    multiple planes per Doppler offset; fused per-cell detect + grouping
-    stay bit-exact vs the standalone kernels."""
-    from fmcw_tpu.ops import cfar as C
-    from fmcw_tpu.ops.cfar_pallas import cfar_2d_pallas_detect
-
-    p = RadarParams(n_range=256, n_doppler=512)
-    iq = _iq(p, seed=8)
-    det_s, mag, _, _, n_dets = rdm_frontend(
-        jnp.asarray(iq), jnp.asarray(False), interpret=True, cfar=p.cfar,
-        detect=True, scale_override=jnp.asarray(0, jnp.int32))
-    want, _ = cfar_2d_pallas_detect(mag, jnp.asarray(0, jnp.int32),
-                                    cfar=p.cfar, interpret=True)
-    got = _deinterleave(det_s, p.n_range, p.n_doppler)
-    assert np.array_equal(got, np.asarray(want))
-    assert int(n_dets) == int((got > 0).sum()) > 0
-    det_g, _, _, _, _ = rdm_frontend(
-        jnp.asarray(iq), jnp.asarray(False), interpret=True, cfar=p.cfar,
-        detect=True, scale_override=jnp.asarray(0, jnp.int32),
-        peak_group_radius=2)
-    want_g = C.peak_group(jnp.asarray(got), radius=2)
-    assert np.array_equal(_deinterleave(det_g, p.n_range, p.n_doppler),
-                          np.asarray(want_g))
-
-
-@pytest.mark.slow
-def test_longcpi_array_model_fused_matches_xla():
-    """Array model at a long CPI (8 beams, 256x256, n2d = 2): the fused
-    per-beam kernel's doubly-interleaved coordinate remap (beam / range /
-    doppler) agrees with the XLA chain at the set level, and the grouped
-    extraction recomposes exactly from its own det cube."""
-    from fmcw_tpu.ops import detect as DET
-
-    rng = np.random.default_rng(29)
-    z = np.asarray(reference.two_target_frame(P, seed=29,
-                                              targets=((60, 200, 12000),)))
-    iq = np.stack([pl.complex_to_iq(
-        z * np.exp(2j * np.pi * 0.5 * e * 0.3)
-        + rng.normal(0, 8, z.shape) + 1j * rng.normal(0, 8, z.shape))
-        for e in range(8)])
-    kw = dict(n_elems=8, n_beams=8)
-    a = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="xla", **kw)(iq))
-    b = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="pallas", **kw)(iq))
-    da = set(zip(a["beam_bin"][a["valid"]].tolist(),
-                 a["range_bin"][a["valid"]].tolist(),
-                 a["doppler_bin"][a["valid"]].tolist()))
-    db = set(zip(b["beam_bin"][b["valid"]].tolist(),
-                 b["range_bin"][b["valid"]].tolist(),
-                 b["doppler_bin"][b["valid"]].tolist()))
-    assert da and db
-    assert len(da ^ db) <= max(2, len(da) // 8)       # near-tie flips only
-    assert (int(a["beam_bin"][0]), int(a["range_bin"][0]),
-            int(a["doppler_bin"][0])) == (int(b["beam_bin"][0]),
-                                          int(b["range_bin"][0]),
-                                          int(b["doppler_bin"][0]))
-
-    # Grouped: the sliced+kernel extraction == flat top-K on the returned
-    # (de-interleaved, grouped) det cube — exact, same kernel outputs.
-    g = jax.tree.map(np.asarray, pl.make_array_processor(
-        P, frontend="pallas", peak_group_radius=2, beam_group_radius=1,
-        include_maps=True, **kw)(iq))
-    det = jnp.asarray(g["det_cube"])
-    flat = det.reshape(8 * P.n_range, P.n_doppler)
-    want = jax.tree.map(np.asarray, DET.topk_detections(flat, max_dets=64))
-    got = set(zip(g["beam_bin"][g["valid"]].tolist(),
-                  g["range_bin"][g["valid"]].tolist(),
-                  g["doppler_bin"][g["valid"]].tolist(),
-                  g["mag"][g["valid"]].tolist()))
-    exp = set(zip((want["range_bin"][want["valid"]] // P.n_range).tolist(),
-                  (want["range_bin"][want["valid"]] % P.n_range).tolist(),
-                  want["doppler_bin"][want["valid"]].tolist(),
-                  want["mag"][want["valid"]].tolist()))
-    assert got == exp
-    assert int(g["n_dets"]) == int(want["n_dets"])
+def test_longcpi_array_model_runs_and_groups():
+    """Array model at a long CPI: the beams' cube equals the single-channel
+    chain applied per beam, and cross-beam grouping keeps one beam per
+    cell."""
+    p = RadarParams(n_range=128, n_doppler=256,
+                    cfar=CfarParams(ref_range=2, ref_doppler=2,
+                                    guard_range=1, guard_doppler=1))
+    from fmcw_tpu.ops import beamform as BF
+    rng = np.random.default_rng(3)
+    iq = rng.integers(-300, 300, (4, 256, 128, 2)).astype(np.int16)
+    iq[..., 0] += (4000 * np.cos(2 * np.pi * (
+        20 * np.arange(128)[None, :] / 128
+        + 9 * np.arange(256)[:, None] / 256))).astype(np.int16)
+    out = jax.tree.map(np.asarray, pl.make_array_processor(
+        p, n_elems=4, n_beams=4, beam_group_radius=1)(iq))
+    br, bi = BF.beamform(iq[..., 0].astype(np.float32),
+                         iq[..., 1].astype(np.float32), 4)
+    for b in range(4):
+        mag = np.asarray(pl.float_beam_frontend(
+            br[b], bi[b], False, p, resolve_routes(p),
+            jax.lax.Precision.HIGHEST, "zero"))
+        np.testing.assert_allclose(out["mag_cube"][b], mag,
+                                   rtol=0, atol=1e-4 * mag.max())
+    assert np.all((out["det_cube"] > 0).sum(axis=0) <= 2)
 
 
-def test_longcpi_single_range_slice():
-    """n_range = 128 (n2 = 1, no range interleave) with n2d = 2 parity
-    planes: the kernel skips the range outer DFT and the detect epilogue's
-    row carries address the sublane pad directly — still bit-exact vs the
-    standalone kernel, grouping included."""
-    from fmcw_tpu.ops.cfar_pallas import cfar_2d_pallas_detect
-    from fmcw_tpu.ops import cfar as C
-
-    p = RadarParams(n_range=128, n_doppler=256)
-    iq = _iq(p, seed=6)
-    det_s, mag, _, _, n_dets = rdm_frontend(
-        jnp.asarray(iq), jnp.asarray(False), interpret=True, cfar=p.cfar,
-        detect=True, scale_override=jnp.asarray(0, jnp.int32))
-    want, _ = cfar_2d_pallas_detect(mag, jnp.asarray(0, jnp.int32),
-                                    cfar=p.cfar, interpret=True)
-    got = _deinterleave(det_s, p.n_range, p.n_doppler)
-    assert np.array_equal(got, np.asarray(want))
-    assert int(n_dets) == int((got > 0).sum()) > 0
-    det_g, _, _, _, _ = rdm_frontend(
-        jnp.asarray(iq), jnp.asarray(False), interpret=True, cfar=p.cfar,
-        detect=True, scale_override=jnp.asarray(0, jnp.int32),
-        peak_group_radius=2)
-    want_g = C.peak_group(jnp.asarray(got), radius=2)
-    assert np.array_equal(_deinterleave(det_g, p.n_range, p.n_doppler),
-                          np.asarray(want_g))
-
-
-def test_longcpi_fixed_fused_matches_xla_chain():
-    """mode='fixed' + frontend='pallas' at the split shape (256 x 256):
-    exact detection-set parity with the XLA fixed chain (the
-    test_frontend_fixed contract), magnitudes within the bf16x6 LSB
-    tolerance, saturation counts exact — the fixed kernel rides the same
-    row-block Doppler split as the float kernel."""
-    for scale_mode, pg in (("cell", 0), ("block", 2)):
-        p = P.replace(cfar=dataclasses.replace(
-            P.cfar, scale_mode=scale_mode, scale_block=2))
-        assert pl.fused_fixed_detect_supported(p, peak_group_radius=pg)
-        frame = _iq(p, seed=3)
-        base = dict(mode="fixed", include_maps=True, peak_group_radius=pg)
-        out_x = jax.tree.map(np.asarray,
-                             pl.make_processor(p, **base)(frame))
-        out_k = jax.tree.map(np.asarray, pl.make_processor(
-            p, frontend="pallas", **base)(frame))
-        assert (set(zip(*np.nonzero(out_x["det_map"])))
-                == set(zip(*np.nonzero(out_k["det_map"])))), scale_mode
-        assert out_x["n_dets"] == out_k["n_dets"] > 0
-        assert out_k["mag_map"].dtype == out_x["mag_map"].dtype
-        d = np.abs(out_x["mag_map"].astype(np.int64)
-                   - out_k["mag_map"].astype(np.int64))
-        assert d.max() <= 8, (scale_mode, d.max())
-        assert out_x["saturation_count"] == out_k["saturation_count"]
-        v = out_x["valid"]
-        assert np.array_equal(v, out_k["valid"])
-        sx = set(zip(out_x["range_bin"][v].tolist(),
-                     out_x["doppler_bin"][v].tolist()))
-        sk = set(zip(out_k["range_bin"][v].tolist(),
-                     out_k["doppler_bin"][v].tolist()))
-        assert sx == sk, scale_mode
+def test_longcpi_sharded_matches_single_device():
+    from fmcw_tpu.parallel import mesh as M, sharded as sh
+    p = RadarParams(n_range=128, n_doppler=256,
+                    cfar=CfarParams(ref_range=2, ref_doppler=2,
+                                    guard_range=1, guard_doppler=1))
+    frames = np.stack([pl.complex_to_iq(ref.two_target_frame(p, seed=s))
+                       for s in range(2)])
+    mesh = M.make_mesh(dp=1, sp=2, devices=jax.devices()[:2])
+    got = jax.tree.map(np.asarray, sh.make_sharded_processor(
+        mesh, p, mode="fixed", include_maps=True)(frames))
+    single = pl.make_processor(p, mode="fixed")
+    for i in range(2):
+        want = jax.tree.map(np.asarray, single(frames[i]))
+        assert np.array_equal(got["det_map"][i], want["det_map"])

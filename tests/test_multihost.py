@@ -2,9 +2,9 @@
 
 Spawns two worker processes (tools/multihost_worker.py), each owning 4
 virtual CPU devices, joined into one 8-device global mesh through
-``jax.distributed`` + gloo cross-process collectives — the topology of a
-2-host TPU slice.  The workers run the sharded pipeline with dp across
-hosts (frame parallelism over "DCN") and with sp across hosts (the
+``jax.distributed`` + gloo cross-process collectives — the topology of two
+hosts.  The workers run the sharded pipeline with dp across hosts (frame
+parallelism across the host boundary) and with sp across hosts (the
 all-to-all corner turn and ppermute CFAR halo ring crossing the host
 boundary) and assert bit-identical detections vs the single-device
 pipeline (fixed mode).  This pins the multi-host code path the single-
@@ -77,8 +77,8 @@ def test_two_process_production_shape(tmp_path):
     spanning the 2-process gloo mesh — the corner-turn all-to-all and CFAR
     halo ring cross a real process boundary at the shape the reference
     defines (rtl/src/corner_turner.vhd:29-36).  The worker asserts
-    bit-identical detection sets vs single-device (fixed XLA chain AND the
-    float split-fused kernel path vs the monolithic fused kernel)."""
+    bit-identical detection sets vs single-device in fixed mode, and the
+    same detection positions in float mode with peak grouping."""
     port = _free_port()
     env = dict(os.environ)
     env["MH_LOG_DIR"] = str(tmp_path)
@@ -103,6 +103,6 @@ def test_two_process_production_shape(tmp_path):
                 pr.kill()
     for i, (pr, out) in enumerate(zip(procs, outs)):
         assert pr.returncode == 0, f"worker {i} failed:\n{out[-4000:]}"
-        m = re.search(r"prod1024x128-sp8:fixed(\d+)dets\+split(\d+)dets",
+        m = re.search(r"prod1024x128-sp8:fixed(\d+)dets\+float(\d+)dets",
                       out)
         assert m and int(m.group(1)) > 0 and int(m.group(2)) > 0, out

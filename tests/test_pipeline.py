@@ -1,6 +1,6 @@
-"""Single-chip JAX pipeline tests — parity vs the numpy golden models.
+"""Single-device JAX pipeline tests — parity vs the numpy golden models.
 
-The TPU pipeline (models/pipeline.py) must reproduce the golden chains:
+The pipeline (models/pipeline.py) must reproduce the golden chains:
 float32 mode vs the float64 reference within tight relative error, fixed mode
 vs the bit-faithful fixed-point model with exact detection parity.
 """
@@ -249,21 +249,17 @@ def test_pipeline_ct_fft_detection_parity(qiq):
 
 
 def test_frontend_auto_falls_back_on_unsupported_shapes():
-    """frontend='auto' must never select the Pallas kernel for shapes its
-    slice layout can't hold (n_range not a multiple of 128, or n2 > 16) —
-    it silently falls back to the XLA chain; explicit frontend='pallas'
-    raises up front instead of failing inside the kernel."""
+    """Every frame shape runs on the one compiled chain — including range
+    extents no Cooley-Tukey slice layout holds (n_range not a multiple of
+    128, or more than 16 slices) — and a removed route raises up front."""
     from fmcw_tpu import RadarParams
 
     for nr in (320, 4096):
         p = RadarParams(n_range=nr, n_doppler=16)
-        proc = pl.make_processor(p, mode="float32", include_maps=False,
-                                 frontend="auto")
+        proc = pl.make_processor(p, mode="float32", include_maps=False)
         iq = pl.complex_to_iq(ref.two_target_frame(p, seed=1))
         out = jax.tree.map(np.asarray, proc(iq))     # must not raise
         assert out["range_bin"].shape[0] == p.tracker.max_dets
-        with pytest.raises(ValueError, match="multiple of 128"):
-            pl.make_processor(p, mode="float32", frontend="pallas")
-    assert not pl.frontend_kernel_supported(RadarParams(n_range=320))
-    assert not pl.frontend_kernel_supported(RadarParams(n_range=4096))
-    assert pl.frontend_kernel_supported(RadarParams(n_range=1024))
+        assert proc.routes.range_fft == "matmul"
+        with pytest.raises(ValueError, match="no compiled route"):
+            pl.make_processor(p, mode="float32", cfar_method="pallas")

@@ -45,7 +45,7 @@ from fmcw_tpu.utils import io
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def golden_map():
+def golden_map(reference_data):
     return io.golden_output_map()
 
 
@@ -154,7 +154,7 @@ def test_quick_stimulus_is_int16_deterministic():
     assert np.array_equal(f0, again[0])
 
 
-def test_artifact_clusters_land_on_truth_after_unmapping():
+def test_artifact_clusters_land_on_truth_after_unmapping(reference_artifacts):
     """The checked-in 873 detections, unmapped through the -3 label offset
     and the inverse-FFT mirror, cluster exactly on the synthesized truth
     Doppler bins — the quantitative closure of the as-built label/geometry
@@ -185,7 +185,7 @@ def test_artifact_clusters_land_on_truth_after_unmapping():
     assert mass(13, 1) >= 10            # notch-scan cluster present
 
 
-def test_quick_detection_cluster_parity(quick_run):
+def test_quick_detection_cluster_parity(quick_run, reference_artifacts):
     """Our faithful run and the artifact agree at cluster level in TRUE
     Doppler space: both concentrate on the attacker ridge (d=2), the
     fighter ridge (d=26) and the notch-scan ridge (d=16)."""
@@ -216,7 +216,7 @@ def test_quick_detection_cluster_parity(quick_run):
     assert 10 <= len(ours_true) <= 300
 
 
-def test_quick_track_ramp_shape(quick_run):
+def test_quick_track_ramp_shape(quick_run, reference_artifacts):
     """Track-level shape parity (the artifact's tracker ran row-rate scans
     — ~43 per CPI — so only granularity-independent shape invariants are
     comparable):

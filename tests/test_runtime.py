@@ -57,7 +57,7 @@ def test_stream_batched_pads_and_masks():
     assert stats.frames_processed == 5
 
 
-def test_native_parse_matches_numpy(tmp_path):
+def test_native_parse_matches_numpy(tmp_path, reference_data):
     if not native.available():
         pytest.skip("no native toolchain")
     from fmcw_tpu.utils import io as rio

@@ -115,7 +115,7 @@ def test_pipeline_scaled_knob_matches_golden():
     z = reference.two_target_frame(p, seed=5)
     gm, gd = reference.process_frame_fixed(z, p, fft="scaled")
     proc = pl.make_processor(p, mode="fixed", fixed_fft="scaled",
-                             frontend="xla", include_maps=True)
+                             include_maps=True)
     out = jax.tree.map(np.asarray, proc(pl.complex_to_iq(z)))
     assert np.array_equal(out["mag_map"], gm)
     assert np.array_equal(out["det_map"] > 0, gd > 0)
@@ -128,8 +128,8 @@ def test_pipeline_scaled_knob_validation():
     p = fmcw_tpu.quick()
     with pytest.raises(ValueError, match="mode='fixed'"):
         pl.make_processor(p, mode="float32", fixed_fft="scaled")
-    with pytest.raises(ValueError, match="fused"):
+    with pytest.raises(ValueError, match="no compiled route"):
         pl.make_processor(p, mode="fixed", fixed_fft="scaled",
-                          frontend="pallas")
+                          fft_method="pallas")
     with pytest.raises(ValueError, match="bfp"):
         pl.make_processor(p, mode="fixed", fixed_fft="nope")

@@ -59,7 +59,7 @@ def test_surveillance_checkpoint_resume(tmp_path):
         assert np.array_equal(fa[k], fb[k]), k
 
 
-def test_golden_chirp_file_end_to_end():
+def test_golden_chirp_file_end_to_end(reference_data):
     """data/golden_input_chirp.txt through the full pipeline: the checked-in
     tone (f ~ 0.2833 cyc/sample) fills every chirp; with MTI bypassed the
     detection lands at range bin 290 (= round(0.2833 * 1024)), Doppler 0."""

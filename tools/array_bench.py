@@ -1,12 +1,10 @@
 """Array-radar model throughput A/B (stderr log; not the headline bench).
 
-Same-run comparison of pipeline.make_array_processor front-ends on HBM-
-resident element-space batches (bench.py methodology: best-of-reps,
-readback sync, distinct noise per frame):
-
-  * frontend="xla"    — vmapped XLA chain + cfar_3d (ref_angle=0)
-  * frontend="pallas" — fused per-beam Pallas front-end+detect kernel on
-                        the beamformed float I/Q (per-cell and block scale)
+Same-run comparison of pipeline.make_array_processor CFAR routes on
+device-resident element-space batches (bench.py methodology: median of
+timed batches, each ending in block_until_ready, distinct noise per
+frame): the counting 2D decision per beam vs the ranked stack, per-cell and
+block scale, and the grouped demo configuration.
 
 Run: python tools/array_bench.py [--batch N] [--beams B] [--ref-angle A]
 (--ref-angle > 0 measures the angle-extended 3D-CFAR regime instead.)
@@ -19,10 +17,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"))
 
 
 def log(*a):
@@ -37,6 +31,9 @@ def main():
     from fmcw_tpu import RadarParams
     from fmcw_tpu.golden import reference
     from fmcw_tpu.models import pipeline as pl
+    from fmcw_tpu.utils import compile_cache
+
+    compile_cache.setup()
 
     import argparse
     ap = argparse.ArgumentParser(
@@ -71,28 +68,19 @@ def main():
         return lambda b: fn(b, jnp.asarray(False), jnp.asarray(0, jnp.int32))
 
     if ref_angle > 0:
-        # Angle-extended regime: the cross-beam training set keeps the
-        # decision in the 3D counting kernel (cfar_pallas.cfar_3d_pallas_
-        # detect — the only full-size formulation the chip accepts);
-        # frontend='pallas' (r4) feeds it from the fused per-beam Pallas
-        # front-end instead of the XLA chain (docs/PERF_LOG.md).
-        configs = [
-            (f"xla-chain+cfar3d-kernel/ra{ref_angle}",
-             batched(p, frontend="xla", ref_angle=ref_angle)),
-            (f"fused-frontend+cfar3d-kernel/ra{ref_angle}",
-             batched(p, frontend="pallas", ref_angle=ref_angle)),
-        ]
+        # Angle-extended regime: the cross-beam training set takes the
+        # stacked 3D body (ops/cfar.cfar_3d).
+        configs = [(f"stack3d/ra{ref_angle}",
+                    batched(p, ref_angle=ref_angle))]
     else:
         configs = [
-            ("xla-chain+cfar3d/percell", batched(p, frontend="xla")),
-            ("fused-per-beam/percell", batched(p, frontend="pallas")),
-            ("fused-per-beam/block", batched(p_block, frontend="pallas")),
-            # Production demo config: in-kernel per-beam 2D grouping +
-            # cross-beam grouping (different detection set — no parity
-            # probe).
-            ("fused-per-beam/block+grouped", batched(
-                p_block, frontend="pallas", peak_group_radius=2,
-                beam_group_radius=1)),
+            ("count/percell", batched(p)),
+            ("topk/percell", batched(p, cfar_method="topk")),
+            ("count/block", batched(p_block)),
+            # Production demo config: per-beam 2D grouping + cross-beam
+            # grouping (different detection set — no parity probe).
+            ("count/block+grouped", batched(
+                p_block, peak_group_radius=2, beam_group_radius=1)),
         ]
 
     def sync(out):
@@ -105,15 +93,12 @@ def main():
         out = fn(batch_dev)
         sync(out)
         log(f"{name}: compiled+warm in {time.perf_counter() - t0:.1f}s")
-        sync(fn(batch_dev))
-        best = 0.0
-        for _ in range(4):
+        times = []
+        for _ in range(8):
             t0 = time.perf_counter()
-            for _ in range(8):
-                out = fn(batch_dev)
-            sync(out)
-            dt = time.perf_counter() - t0
-            best = max(best, batch_size * 8 / dt)
+            jax.block_until_ready(fn(batch_dev))
+            times.append(time.perf_counter() - t0)
+        best = batch_size / float(np.median(times))
         o = jax.tree.map(np.asarray, fn(batch_dev))
 
         def dset(x):
@@ -133,21 +118,15 @@ def main():
             ref = o
             ok = True
         else:
-            # bf16x3 kernel front-end vs the HIGHEST XLA chain: detection
-            # SETS agree up to near-tie survivor flips at the top-64
-            # boundary (the contract of tests/test_array_pipeline.py).
-            da, db = dset(ref), dset(o)
-            flips = len(da ^ db)
-            ok = bool(da and flips <= max(2, len(da) // 8))
-            if flips:
-                log(f"  ({flips} near-tie set flips vs xla)")
+            # Same front-end, decision-equal CFAR routes: identical sets.
+            ok = bool(dset(ref)) and dset(ref) == dset(o)
         results[name] = (best, ok)
         log(f"{name}: {best:.1f} cubes/s = {best * n_beams:.0f} beam-maps/s"
             f"  detection-parity={ok}")
 
     base = results[configs[0][0]][0]
     for name, (fps, ok) in results.items():
-        log(f"  {name}: {fps / base:.2f}x vs xla  parity={ok}")
+        log(f"  {name}: {fps / base:.2f}x vs {configs[0][0]}  parity={ok}")
 
 
 if __name__ == "__main__":

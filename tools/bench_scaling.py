@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Multi-chip / multi-host scaling benchmark (BASELINE configs 3 and 5).
+"""Multi-device / multi-host scaling benchmark (BASELINE configs 3 and 5).
 
 Measures frames/s for the sharded pipeline across mesh shapes and reports
 weak-scaling efficiency: each added chip brings its own share of frames
@@ -14,19 +14,16 @@ Emits one JSON line of per-mesh results plus a ``northstar`` record:
 pass/fail against the >= 90% weak-scaling-efficiency target (BASELINE.json
 north star) evaluated on the largest dp mesh measured.
 
-On a multi-host pod slice the run is turnkey — one command per host:
+On one host with several GPUs, plain ``python tools/bench_scaling.py`` uses
+every card.  Across hosts, one command per host:
 
-    # host i of H (per-host chips autodetected; e.g. v5e-16 = 4 hosts x 4):
     JAX_COORDINATOR_ADDRESS=host0:8476 JAX_NUM_PROCESSES=$H \
     JAX_PROCESS_ID=$i python tools/bench_scaling.py --batch 64
 
-``parallel/mesh.maybe_init_distributed`` reads those env vars (or the TPU
-pod metadata on Cloud TPU VMs, where plain ``python tools/bench_scaling.py``
-suffices) and the mesh spans all hosts: collectives ride ICI within a
-slice, DCN across hosts.  On this single-chip dev box, --cpu 8 demonstrates
-the methodology on the virtual CPU mesh (compute-bound numbers are not
-representative; the sharding/collective structure is identical — the
-northstar gate is only meaningful on real multi-chip hardware).
+``parallel/mesh.maybe_init_distributed`` reads those env vars and the mesh
+spans all hosts.  ``--cpu 8`` demonstrates the methodology on the virtual
+CPU mesh (its numbers are not device numbers; the sharding/collective
+structure is identical — the northstar gate is only meaningful on GPUs).
 """
 
 import argparse
@@ -122,20 +119,8 @@ def main():
         "measured_eff": biggest["weak_scaling_eff"],
         "at": biggest["config"],
         "hardware": jax.devices()[0].device_kind,
-        "meaningful": jax.default_backend() == "tpu" and n_dev > 1,
+        "meaningful": jax.default_backend() == "gpu" and n_dev > 1,
         "pass": biggest["weak_scaling_eff"] >= 0.90,
-        # Analytic substitute while real multi-chip hardware is out of
-        # reach (docs/scaling_model.md: per-frame collective bytes vs v5e
-        # ICI bandwidth against the 36 us/frame compute budget).  These
-        # projections are what the schema test pins; a real-slice run
-        # flips `meaningful` to true and records the measurement beside
-        # them.
-        "analytic_model": "docs/scaling_model.md",
-        "projected_eff": {
-            "dp=8": 1.0,
-            "sp=8_overlapped": 0.93,
-            "sp=8_no_overlap": 0.60,
-        },
     }
     print(json.dumps({"results": results, "northstar": northstar}))
     if northstar["meaningful"] and not northstar["pass"]:

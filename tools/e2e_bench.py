@@ -3,11 +3,10 @@
 
 Measures sustained frames/s of the WHOLE system, not just the on-device
 pipeline: host-resident int16 frames -> double-buffered batched ingest
-(runtime/stream.stream_batched, H2D overlapping compute) -> fused
-single-kernel pipeline -> TWS tracker scan steps -> detection/track logs in
-the reference text formats (utils/io).  This is the TPU analog of the
-reference's fully-streaming operation: ADC in, tracks out
-(rtl/src/radar_core.vhd:26-55).
+(runtime/stream.stream_batched, H2D overlapping compute) -> batch
+pipeline -> TWS tracker scan steps -> detection/track logs in the reference
+text formats (utils/io).  This is the batched analog of the reference's
+fully-streaming operation: ADC in, tracks out (rtl/src/radar_core.vhd:26-55).
 
 Usage: python tools/e2e_bench.py [--frames 1024] [--batch 128] [--cpu]
                                  [--scale-mode block|cell] [--no-logs]
@@ -25,10 +24,6 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
 
 
 def main():
@@ -60,6 +55,8 @@ def main():
     if args.scale_mode == "block":
         p = p.replace(cfar=dataclasses.replace(p.cfar, scale_mode="block"))
     print(f"devices: {jax.devices()}", file=sys.stderr)
+    from fmcw_tpu.utils import compile_cache
+    compile_cache.setup()
 
     rng = np.random.default_rng(0)
     base = pl.complex_to_iq(reference.two_target_frame(p))
@@ -70,7 +67,7 @@ def main():
     frames = [pool[i % len(pool)] for i in range(args.frames)]
 
     proc = pl.make_batch_processor(p, mode="float32", include_maps=False,
-                                   frontend="pallas", peak_group_radius=2)
+                                   peak_group_radius=2)
 
     tp = p.tracker
     tmp = tempfile.mkdtemp(prefix="e2e_bench_")

@@ -1,4 +1,4 @@
-"""Corner-turn collective cost: trace-derived numbers (VERDICT r2 #7).
+"""Corner-turn collective cost: trace-derived numbers.
 
 Profiles the sp-sharded pipeline on the virtual CPU mesh with the JAX
 profiler (perfetto trace), extracts the all-to-all (corner turn) and
@@ -9,8 +9,9 @@ The CPU backend executes thunks serially, so this measures the collectives'
 *cost share* of a step — the quantity the overlap claim in
 docs/corner_turn.md needs: if the corner-turn exchange is x% of step time
 and the dp axis pipelines independent frames, hiding it needs only that
-much concurrent compute.  (True ICI/compute overlap is a TPU-runtime
-property; on a one-chip dev box the cost share is the measurable proxy.)
+much concurrent compute.  (True collective/compute overlap is a property
+of the GPU runtime, read from a multi-card profiler trace; on the CPU mesh
+the cost share is the measurable proxy.)
 
 Usage: python tools/overlap_trace.py [--devices 8] [--batch 8] [--out J]
 """
@@ -62,11 +63,10 @@ def main():
     np.asarray(out["n_dets"])                      # warm/compile
 
     # Correctness gate on the traced full-size sharded execution: frame 0's
-    # detection set must equal the single-chip pipeline's (the r4
+    # detection set must equal the single-device pipeline's (the
     # production-shape parity contract — a profiling run must not measure
     # a wrong program).
-    single = pl.make_processor(p, mode="float32", frontend="xla",
-                               include_maps=False)
+    single = pl.make_processor(p, mode="float32", include_maps=False)
     ref_out = jax.tree.map(np.asarray, single(batch[0]))
     got = jax.tree.map(np.asarray, proc(batch[:1]))
     v_s, v_r = got["valid"][0], ref_out["valid"]

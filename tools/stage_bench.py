@@ -40,7 +40,9 @@ def main():
     from fmcw_tpu.models import pipeline as pl
     from fmcw_tpu.ops import fft as F, notch as N, magnitude as M, cfar as C
     from fmcw_tpu.ops import detect as DET
+    from fmcw_tpu.utils import compile_cache
 
+    compile_cache.setup()
     p = fmcw_tpu.full()
     B = args.batch
     rng = np.random.default_rng(0)
@@ -51,10 +53,7 @@ def main():
     prec = jax.lax.Precision.HIGH
 
     def sync(x):
-        # Small readback as the completion barrier (CLAUDE.md): slice on
-        # device, transfer one element — never the full output.
-        leaf = jax.tree.leaves(x)[0]
-        np.asarray(leaf.ravel()[:1])
+        jax.block_until_ready(x)
 
     @jax.jit
     def ffts_only(iq):
@@ -72,22 +71,21 @@ def main():
     mag = ffts_only(iq)
     mag = jax.device_put(np.asarray(mag))
 
-    cfar_pallas = jax.jit(jax.vmap(lambda m: C.cfar_2d_auto(
-        m, jnp.int32(0), cfar=p.cfar, method="pallas", need_debug=False)[0]))
-    cfar_pallas_dbg = jax.jit(jax.vmap(lambda m: C.cfar_2d_auto(
-        m, jnp.int32(0), cfar=p.cfar, method="pallas", rank_bits=16,
-        need_debug=True)[0]))
+    cfar_count = jax.jit(jax.vmap(lambda m: C.cfar_2d_auto(
+        m, jnp.int32(0), cfar=p.cfar, method="count", need_debug=False)[0]))
+    cfar_topk = jax.jit(jax.vmap(lambda m: C.cfar_2d_auto(
+        m, jnp.int32(0), cfar=p.cfar, method="topk", need_debug=True)[0]))
     topk = jax.jit(jax.vmap(lambda d: DET.topk_detections(
         d, max_dets=p.tracker.max_dets)["n_dets"]))
 
-    det = cfar_pallas(mag)
+    det = cfar_count(mag)
     full = pl.make_batch_processor(p, mode="float32", include_maps=False,
                                    precision=prec)
 
     results = {
         "ffts+mag": timeit(lambda: ffts_only(iq), sync, args.iters),
-        "cfar-detect": timeit(lambda: cfar_pallas(mag), sync, args.iters),
-        "cfar-rank16": timeit(lambda: cfar_pallas_dbg(mag), sync, args.iters),
+        "cfar-count": timeit(lambda: cfar_count(mag), sync, args.iters),
+        "cfar-topk": timeit(lambda: cfar_topk(mag), sync, args.iters),
         "topk": timeit(lambda: topk(det), sync, args.iters),
         "full": timeit(lambda: full(iq), sync, args.iters),
     }

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""End-to-end demo CLI: run the tactical scenario through the TPU radar
+"""End-to-end demo CLI: run the tactical scenario through the radar
 pipeline + TWS tracker, write reference-format logs, render analysis PNGs.
 
 Equivalent of running rtl/src/tb_tactical.vhd in xsim and then
